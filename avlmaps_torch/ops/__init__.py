@@ -1,2 +1,3 @@
 """Device ops: kernel wrappers with their plain versions (fused_vit,
-segment_scatter), the voxel fusion and the bilinear resizes."""
+segment_scatter, similarity), the voxel fusion, the bilinear resizes, the
+3D heatmap, the query delivery heads, pooling and morphology."""

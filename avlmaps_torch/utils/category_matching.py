@@ -1,0 +1,32 @@
+"""Category name resolution.
+
+Counterpart of ``avlmaps_tpu/utils/category_matching.py``.  The reference
+resolves unknown names with an OpenAI text-davinci-002 call
+(avlmaps/utils/index_utils.py:8-32).  Here the exact match comes first,
+then an injectable resolver, then a fuzzy string match, so a query never
+fails offline.  The JAX package's OpenAI-key branch (through its
+``utils/llm``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import difflib
+from typing import Callable, List, Optional
+
+# injectable resolver: fn(class_name, classes_list) -> resolved name
+llm_resolver: Optional[Callable[[str, List[str]], str]] = None
+
+
+def find_similar_category_id(class_name: str,
+                             classes_list: List[str]) -> int:
+    """Index of the most similar category (reference index_utils.py:8-32)."""
+    if class_name in classes_list:
+        return classes_list.index(class_name)
+    if llm_resolver is not None:
+        result = llm_resolver(class_name, classes_list)
+        if result in classes_list:
+            return classes_list.index(result)
+    # offline fallback: closest string match
+    match = difflib.get_close_matches(class_name, classes_list, n=1,
+                                      cutoff=0.0)
+    return classes_list.index(match[0]) if match else 0

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,17 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             f"device={str(device)!r} requested but no CUDA card is available; "
             "pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def to_device(a, device: torch.device, dtype=None,
+              non_blocking: bool = False) -> torch.Tensor:
+    """``a`` (tensor, numpy array or nested sequence) as a tensor on
+    ``device``; a tensor already there with the dtype is returned as is.
+    ``non_blocking=True`` stages a host array in pinned memory and copies
+    it asynchronously: a copy from pageable memory makes the host wait for
+    the card, pinned staging does not."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+        if non_blocking and device.type == "cuda":
+            a = a.pin_memory()
+    return a.to(device=device, dtype=dtype, non_blocking=non_blocking)

@@ -6,19 +6,35 @@
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and builds every kernel of ``avlmaps_torch/csrc`` (one
    ``nvcc`` per source, all at once) into ``avlmaps_torch/_build``.
+   Switches TF32 off for matmul and cuDNN (the port never switches it on;
+   the query phase asserts it stays off).
 2. Kernel checks: K1-K4 at the map-building shapes (4 frames = 8 crops of
    480^2, M = 7208 token rows, 7776 points per frame into a 1e6-slot
-   accumulator), each against its plain PyTorch version on the same
-   inputs, with its tolerance; times the kernel, the plain version and one
-   PyTorch library call for the same function (a yardstick the port never
-   calls) with CUDA events.
-3. The slice: writes a synthetic 720x1080 RGB-D scene, builds it with
-   ``VLMapBuilder`` and the ViT-L/16 LSeg in bf16 (seeded random weights)
-   at gs=1000, cs=0.05, vh=30, capacity 1e6, D=512, batch 4, canvas
-   transport, sliding-window eval; checks the launch counts (K1-K3 24 per
-   forward, K4 one per step), the map, the HDF5 reload, and one crop's
-   features against the CPU path of the same network.
-4. Prints the kernel table as one JSON line, then the card line, and last
+   accumulator), and K7/K8 at the serving query's shape (N = 1e6 voxels x
+   512 f32, C = 22 categories, again at C = 41, and the tie cases), each
+   against its plain PyTorch version on the same inputs, with its
+   tolerance; times the kernel, the plain version and one PyTorch library
+   call for the same function (a yardstick the port never calls) with
+   CUDA events.
+3. Slice 1, map construction: writes a synthetic 720x1080 RGB-D scene,
+   builds it with ``VLMapBuilder`` and the ViT-L/16 LSeg in bf16 (seeded
+   random weights) at gs=1000, cs=0.05, vh=30, capacity 1e6, D=512, batch
+   4, canvas transport, sliding-window eval; checks the launch counts
+   (K1-K3 24 per forward, K4 one per step), the map, the HDF5 reload, and
+   one crop's features against the CPU path of the same network.
+4. Slice 2, the object query: the full-width ViT-B/32 CLIP text tower
+   (seeded weights) on the card against the port's CPU path; the serving
+   query (``make_text_object_query``) at production scale (1e6 voxels x
+   512 f32 on a 1000x1000x30 grid, 21 resident categories + the query,
+   k = 64): queries/s over 8 words x 3 epochs with async fetches, the
+   synchronous latency, goal / top-k / u8 parity with the host heat, a
+   run under ``torch.cuda.set_sync_debug_mode("error")`` up to the fetch,
+   K7 once per query, and the device ms per stage from ``torch.profiler``;
+   then the object query (``AVLMap.index_object``, every delivery,
+   ``init_categories`` with K8 once, ``make_serving_query``, ``get_pos``)
+   on the map slice 1 built.  Counts are zeroed before each slice's path
+   and read after it.
+5. Prints the kernel table as one JSON line, then the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no result line.
@@ -53,6 +69,30 @@ N_WARM = 4  # frames of the warm-up build (one step)
 N_FRAMES = 32  # frames of the measured build (8 steps)
 N_PROF = 4  # steps of the profiled build
 LAYERS = 24
+
+# the object query's shapes (bench.py's serving query): 1e6 voxels x 512
+# f32 on a 1000x1000x30 grid, 21 resident categories + the query, k = 64
+N_VOX = 1_000_000
+GRID = (1000, 1000, 30)
+K_TOP = 64
+WORDS = ["chair", "table", "sofa", "bed", "plant", "toilet", "tv", "sink"]
+RESIDENT = ["cabinet", "cushion", "counter", "shelving", "stool", "towel",
+            "picture", "shower", "bathtub", "fireplace", "gym equipment",
+            "seating", "clothes", "door", "window", "curtain", "mirror",
+            "lighting", "chest of drawers", "column", "other"]
+# the Matterport3D 40-class list (reference
+# avlmaps/utils/matterport3d_categories.py); index_object strips the first
+# and last entries
+MP3D = ["void", "wall", "floor", "chair", "door", "table", "picture",
+        "cabinet", "cushion", "window", "sofa", "bed", "curtain",
+        "chest_of_drawers", "plant", "sink", "stairs", "ceiling", "toilet",
+        "stool", "towel", "mirror", "tv_monitor", "shower", "column",
+        "bathtub", "counter", "fireplace", "lighting", "beam", "railing",
+        "shelving", "blinds", "gym_equipment", "seating", "board_panel",
+        "furniture", "appliances", "clothes", "objects"]
+STAGES = ["query.text_encode", "query.score_argmax", "query.scatter_min",
+          "query.edt_axis0", "query.edt_axis1", "query.edt_axis2",
+          "query.gather_heat", "query.delivery", "query.topk"]
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores
@@ -267,6 +307,107 @@ def kernel_checks():
     return rows
 
 
+def _uncounted(fn, *args):
+    """A check's own launch of a kernel wrapper, kept out of the counts
+    of the main path."""
+    before = fn.launches
+    out = fn(*args)
+    fn.launches = before
+    return out
+
+
+def _clear_rows(scores, rel: float = 1e-5):
+    """Rows whose top-2 score gap exceeds ``rel`` x |top score|."""
+    top2 = scores.topk(2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]) > rel * top2[:, 0].abs()
+
+
+def score_kernel_checks():
+    """K7 and K8 at the serving shape against their plain versions, the
+    tie cases, and their times."""
+    import torch
+
+    from avlmaps_torch.ops import similarity as sim
+
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x = torch.randn(N_VOX, FEAT, generator=g, device=dev)
+    texts = {c: torch.randn(c, FEAT, generator=g, device=dev)
+             for c in (22, 41)}
+    rows = []
+    for c, t in texts.items():
+        # K8 on normalised scores (|s| <= 1): f32 sums of 512 products in
+        # another order differ by ~1e-7
+        err8 = compare(f"K8 score_features C={c}",
+                       sim.score_features(x, t, True, True),
+                       sim.score_features_ref(x, t, True, True), 1e-5, 1e-5)
+        labels = sim.score_argmax(x, t, normalize_map=True,
+                                  normalize_text=True)
+        want = sim.score_argmax_ref(x, t, normalize_text=True)
+        clear = _clear_rows(sim.score_features_ref(x, t,
+                                                   normalize_text=True))
+        bad = int((labels != want)[clear].sum())
+        print(f"  K7 score_argmax C={c}: {bad} mismatched rows outside the "
+              f"near-tie set; {int((~clear).sum())} rows with a top-2 gap "
+              f"<= 1e-5 x |top|")
+        if bad:
+            raise AssertionError(f"K7 disagrees with its plain version on "
+                                 f"{bad} rows with a clear maximum")
+        th = sim._text_hat(t, True)
+        k8 = lambda: sim.score_features(x, t, True, True)  # noqa: E731
+        p8 = lambda: sim.score_features_ref(x, t, True, True)  # noqa: E731
+        lib8 = lambda: torch.matmul(x, th.T) / torch.clamp(  # noqa: E731
+            torch.linalg.vector_norm(x, dim=1, keepdim=True), min=1e-6)
+        k7 = lambda: sim.score_argmax(x, t, True, True)  # noqa: E731
+        p7 = lambda: sim.score_argmax_ref(x, t, True, True)  # noqa: E731
+        lib7 = lambda: torch.matmul(x, th.T).argmax(1)  # noqa: E731
+        b8 = bound(2 * N_VOX * FEAT * c + 2 * N_VOX * FEAT,
+                   4 * (N_VOX * FEAT + c * FEAT + N_VOX * c), PEAK_F32)
+        b7 = bound(2 * N_VOX * FEAT * c,
+                   4 * (N_VOX * FEAT + c * FEAT + N_VOX), PEAK_F32)
+        got = [dict(name="score_features", fn=sim.score_features,
+                    replaces="avlmaps_tpu/ops/similarity.py:56",
+                    max_abs_err=err8, ms=time_ms(k8), plain_ms=time_ms(p8),
+                    bound_ms=b8[0], bound_by=b8[1], library_ms=time_ms(lib8)),
+               dict(name="score_argmax", fn=sim.score_argmax,
+                    replaces="avlmaps_tpu/ops/similarity.py:157",
+                    max_abs_err=bad, ms=time_ms(k7), plain_ms=time_ms(p7),
+                    bound_ms=b7[0], bound_by=b7[1], library_ms=time_ms(lib7))]
+        for r in got:
+            r.update(route="cuda", source="avlmaps_torch/csrc/similarity.cu")
+            print(f"  {r['name']} C={c}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if c == 22:  # the serving shape goes into the kernel table
+            rows += got
+
+    # ties: 4096 zero rows tie every category; categories 9 and 30 repeat
+    # category 4 (one shared-memory chunk at C=22; at C=41 too)
+    xz = x.clone()
+    xz[:4096] = 0
+    for c, t in texts.items():
+        td = t.clone()
+        td[9] = td[4]
+        if c > 30:
+            td[30] = td[4]
+        labels = sim.score_argmax(xz, td, normalize_text=True)
+        want = sim.score_argmax_ref(xz, td, normalize_text=True)
+        clear = _clear_rows(sim.score_features_ref(xz, td,
+                                                   normalize_text=True))
+        clear[:4096] = False
+        if (not bool((labels[:4096] == 0).all())
+                or bool(((labels == 9) | (labels == 30)).any())
+                or not bool((labels == 4).any())
+                or not torch.equal(labels[clear], want[clear])):
+            raise AssertionError(f"K7 tie cases fail at C={c}")
+        print(f"  K7 ties C={c}: 4096 zero rows -> 0, duplicated categories "
+              f"-> the lower index ({int((labels == 4).sum())} rows)")
+    del x, xz
+    torch.cuda.empty_cache()
+    return rows
+
+
 def write_scene(root: Path, n: int, seed: int, h: int = 720,
                 w: int = 1080) -> Path:
     """A synthetic RGB-D walk: colour gradients with noise, a depth ramp
@@ -358,8 +499,9 @@ def time_producer(scene: Path, mc, n_frames: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / n_batches
 
 
-def slice_run(rows):
-    """The map build at full width, with launch counts and output checks."""
+def slice_run(rows, tmp: Path) -> Path:
+    """The map build at full width, with launch counts and output checks;
+    returns the scene directory, whose ``vlmap/vlmaps.h5df`` holds the map."""
     import torch
 
     from avlmaps_torch.config import load_config
@@ -397,29 +539,28 @@ def slice_run(rows):
             lseg_apply=apply, feat_dim=FEAT, batch_size=BATCH, seed=0,
             half_res_apply=True, device="cuda")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        warm = write_scene(Path(tmp) / "warm", N_WARM, seed=1)
-        scene = write_scene(Path(tmp) / "scene", N_FRAMES, seed=0)
-        print(f"  scenes written in {time.perf_counter() - t0:.1f} s")
-        builder(warm).create_mobile_base_map(save_every=0, progress=False)
+    t0 = time.perf_counter()
+    warm = write_scene(tmp / "warm", N_WARM, seed=1)
+    scene = write_scene(tmp / "scene", N_FRAMES, seed=0)
+    print(f"  scenes written in {time.perf_counter() - t0:.1f} s")
+    builder(warm).create_mobile_base_map(save_every=0, progress=False)
 
-        for r in rows:
-            r["fn"].launches = 0
-        b = builder(scene)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        m = b.create_mobile_base_map(save_every=0, progress=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        for r in rows:
-            r["launches"] = r["fn"].launches
-        steps = math.ceil(N_FRAMES / BATCH)
-        reloaded = SparseVoxelMap.load(b.map_save_path)
-        producer_ms = time_producer(scene, mc, N_FRAMES)
-        prof_scene = write_scene(Path(tmp) / "prof", N_PROF * BATCH, seed=2)
-        device_ms = profile_build(builder(prof_scene), N_PROF)
+    for r in rows:
+        r["fn"].launches = 0
+    b = builder(scene)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = b.create_mobile_base_map(save_every=0, progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in rows:
+        r["launches"] = r["fn"].launches
+    steps = math.ceil(N_FRAMES / BATCH)
+    reloaded = SparseVoxelMap.load(b.map_save_path)
+    producer_ms = time_producer(scene, mc, N_FRAMES)
+    prof_scene = write_scene(tmp / "prof", N_PROF * BATCH, seed=2)
+    device_ms = profile_build(builder(prof_scene), N_PROF)
 
     stats = b.build_stats
     print(f"  frames={stats['frames']} voxels={stats['voxels']} "
@@ -473,6 +614,297 @@ def slice_run(rows):
     # 24 bf16 blocks whose sums run in another order on each side
     if float(cos.min()) < 0.999:
         raise AssertionError("card features disagree with the CPU path")
+    return scene
+
+
+def clip_check():
+    """The full-width ViT-B/32 CLIP (seeded weights) on the card against
+    the port's CPU path; returns the card's encoder."""
+    import torch
+
+    from avlmaps_torch.models.clip import MULTIPLE_TEMPLATES, ClipEncoder
+
+    t0 = time.perf_counter()
+    enc = ClipEncoder("ViT-B/32", seed=0, device="cuda")
+    cfg = enc.cfg
+    print(f"  ViT-B/32 text tower: {cfg.text_layers} layers, width "
+          f"{cfg.text_width}, {cfg.text_heads} heads, context "
+          f"{cfg.context_length}; set up in {time.perf_counter() - t0:.1f} s")
+    cpu = ClipEncoder("ViT-B/32", device="cpu", params={
+        k: v.cpu() for k, v in enc.model.state_dict().items()})
+    names = ["chair"] + RESIDENT
+    worst = 1.0
+    for what, fn in (("plain prompts", lambda e: e.get_text_feats(names)),
+                     ("64-template ensembles",
+                      lambda e: e.get_text_feats_multiple_templates(
+                          names))):
+        a, b = fn(enc), fn(cpu)
+        cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                                * np.linalg.norm(b, axis=1))
+        print(f"  {what}: {len(a)} texts, card vs CPU cosine min "
+              f"{cos.min():.7f}")
+        worst = min(worst, float(cos.min()))
+    # both sides compute in f32; only the summation order differs
+    if worst < 0.9999:
+        raise AssertionError("CLIP text features disagree with the CPU path")
+    tokens = enc.device_tokens([t.format("chair")
+                                for t in MULTIPLE_TEMPLATES])
+    print(f"  template-ensemble encode of one word (64 prompts, ids cut to "
+          f"{tokens.shape[1]} of {cfg.context_length} tokens): "
+          f"{time_ms(lambda: enc.encode_templates(tokens)):.3f} ms")
+    return enc
+
+
+def _device_ms(e):
+    t = getattr(e, "device_time_total", None)
+    return (e.cuda_time_total if t is None else t) / 1e3
+
+
+def profile_queries(query, args, n: int):
+    """Prints the device ms per query: in total (every kernel and copy)
+    and by stage (the ``query.*`` ranges the port marks with
+    ``record_function``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for w in WORDS[:n]:
+            query(w, *args)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == gpu and not e.key.startswith("query."))
+    total = total / 1e3 / n
+    stages = {e.key: _device_ms(e) / n for e in events
+              if e.device_type == cpu and e.key in STAGES}
+    # K7 is launched through ctypes, not by a torch op, so the profiler
+    # does not attribute it to its range: count it by kernel name
+    k7 = sum(e.self_device_time_total for e in events
+             if e.device_type == gpu and "score_kernel" in e.key)
+    stages["query.score_argmax"] = (stages.get("query.score_argmax", 0.0)
+                                    + k7 / 1e3 / n)
+    print(f"  profiled {n} queries: device busy {total:.3f} ms per query; "
+          "by stage:")
+    for name in STAGES:
+        print(f"    {name[6:]:<12} {stages.get(name, float('nan')):8.3f} ms")
+    if total <= 0 or len(stages) != len(STAGES):
+        raise AssertionError("the profiler saw no device time per stage")
+    top = sorted((e for e in events if e.device_type == gpu
+                  and not e.key.startswith("query.")),
+                 key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms/query "
+              f"{e.count // n:4d}x  {e.key[:80]}")
+
+
+def serving_run(enc):
+    """The serving query at production scale: rate, latency, parity with
+    the host heat, no host sync before the fetch, K7 once per query."""
+    import torch
+
+    from avlmaps_torch.ops import delivery as dlv
+    from avlmaps_torch.ops import similarity as sim
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on for matmul or cuDNN")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    feats = torch.randn(N_VOX, FEAT, generator=g, device="cuda")
+    pos = torch.stack([torch.randint(0, s, (N_VOX,), generator=g,
+                                     device="cuda") for s in GRID],
+                      1).to(torch.int32)
+    other = enc.get_text_feats_multiple_templates(RESIDENT, as_device=True)
+    query = dlv.make_text_object_query(enc, GRID, cell_size=0.05,
+                                       decay_rate=0.01, k=K_TOP,
+                                       with_topk=True, device="cuda")
+    args = (feats, pos, other)
+    keys = ("goal_pos", "topk_vals", "topk_pos")
+
+    def epoch() -> float:
+        t0 = time.perf_counter()
+        pending = [dlv.copy_to_host_async(*(o[k] for k in keys))
+                   for o in (query(w, *args) for w in WORDS)]
+        for _, event in pending:
+            event.synchronize()
+        return len(WORDS) / (time.perf_counter() - t0)
+
+    epoch()  # warm-up
+    rates = sorted(epoch() for _ in range(3))
+    lat = []
+    for w in WORDS[:4]:
+        t0 = time.perf_counter()
+        dlv.fetch_np(query(w, *args)["goal_pos"])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    print(f"  serving: {rates[1]:.2f} queries/s median over 3 epochs of "
+          f"{len(WORDS)} (min {rates[0]:.2f}, max {rates[-1]:.2f}); "
+          f"synchronous latency {sorted(lat)[len(lat) // 2]:.2f} ms median "
+          f"of {len(lat)} (min {min(lat):.2f})")
+
+    # parity with the host heat, on a query that also returns the u8 head
+    before = sim.score_argmax.launches
+    out = dlv.make_text_object_query(enc, GRID, cell_size=0.05,
+                                     decay_rate=0.01, k=K_TOP, with_u8=True,
+                                     device="cuda")("chair", *args)
+    if sim.score_argmax.launches != before + 1:
+        raise AssertionError("the serving query did not launch K7 once")
+    heat, u8, goal, tv, tp = dlv.fetch_np(out["heat"], out["heat_u8"],
+                                          *(out[k] for k in keys))
+    pos_h = pos.cpu().numpy()
+    text = torch.cat([enc.get_text_feats_multiple_templates(
+        ["chair"], as_device=True), other])
+    mask = (_uncounted(sim.score_argmax, feats, text, True, True)
+            == 0).cpu().numpy()
+    order = np.argsort(-heat, kind="stable")[:K_TOP]
+    checks = {
+        "goal == grid_pos[argmax(host heat)]":
+            np.array_equal(goal, pos_h[int(np.argmax(heat))]),
+        "heat in [0, 1]": bool(heat.min() >= 0 and heat.max() <= 1),
+        "heat == 1 on every target": bool((heat[mask] == 1).all()),
+        "top-k values == stable top-k of host heat":
+            np.array_equal(tv, heat[order]),
+        "top-k positions == stable top-k of host heat":
+            np.array_equal(tp, pos_h[order]),
+        "heat_u8 == round(heat * 255)":
+            np.array_equal(u8, np.round(heat * 255).astype(np.uint8)),
+    }
+    print(f"  'chair': {int(mask.sum())} target voxels of {N_VOX}, "
+          f"{int((heat > 0).sum())} with heat > 0, goal {goal.tolist()}")
+    for name, ok in checks.items():
+        print(f"  {'pass' if ok else 'FAIL'}: {name}")
+    if not all(checks.values()):
+        raise AssertionError("serving query parity failed")
+
+    # no host synchronisation from the query's start to its fetch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = query("sofa", *args)
+        host, event = dlv.copy_to_host_async(*(out[k] for k in keys))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    event.synchronize()
+    print("  pass: a warm query ran under set_sync_debug_mode('error') up "
+          "to its fetch")
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 was switched on during the query")
+
+    profile_queries(query, args, 4)
+    del feats, pos, out
+    torch.cuda.empty_cache()
+
+
+def object_query_run(enc, scene: Path):
+    """The object query through AVLMap on the map slice 1 built."""
+    import torch
+
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.avlmap import AVLMap
+    from avlmaps_torch.ops import similarity as sim
+    from avlmaps_torch.ops.delivery import fetch_np
+    from avlmaps_torch.ops.heatmap import heatmap_from_mask_3d
+
+    cfg = load_config()
+    avl = AVLMap(cfg, clip_encoder=enc, device="cuda")
+    vm = avl.vlmap
+    if not vm.load_map(scene):
+        raise AssertionError("the slice-1 map did not load")
+    n = vm.grid_feat.shape[0]
+    feats = torch.from_numpy(vm.grid_feat).cuda()
+
+    before = sim.score_features.launches
+    scores = vm.init_categories(MP3D[1:-1])
+    if sim.score_features.launches != before + 1:
+        raise AssertionError("init_categories did not launch K8 once")
+    names = MP3D[1:-1] + ["other"]
+    text = enc.get_text_feats_multiple_templates(names, as_device=True)
+    ref = sim.score_features_ref(feats, text)
+    err = float((torch.from_numpy(scores).cuda() - ref).abs().max())
+    clear = _clear_rows(ref)
+    by_cat = vm.index_map("chair")
+    want = (ref.argmax(1) == names.index("chair")).cpu().numpy()
+    ok_cat = np.array_equal(by_cat[clear.cpu().numpy()],
+                            want[clear.cpu().numpy()])
+    fused = vm.index_map("chair", with_init_cat=False)
+    text2 = enc.get_text_feats_multiple_templates(["chair", "other"],
+                                                  as_device=True)
+    ref2 = sim.score_features_ref(feats, text2)
+    clear2 = _clear_rows(ref2).cpu().numpy()
+    ok_fused = np.array_equal(fused[clear2],
+                              (ref2.argmax(1) == 0).cpu().numpy()[clear2])
+    print(f"  map: {n} voxels; init_categories: {len(names)} categories "
+          f"(K8 once), max |score - plain| {err:.2e}; index_map('chair'): "
+          f"{int(by_cat.sum())} voxels by the preloaded categories, "
+          f"{int(fused.sum())} by K7 against 'other'")
+
+    f32 = avl.index_object("chair", decay_rate=0.01)
+    u8 = avl.index_object("chair", decay_rate=0.01, delivery="u8")
+    dev = avl.index_object("chair", decay_rate=0.01, delivery="device")
+    vals, tpos = avl.index_object("chair", decay_rate=0.01, delivery="topk")
+    goal = avl.index_object("chair", decay_rate=0.01, delivery="goal")
+    order = np.argsort(-f32, kind="stable")[:K_TOP]
+    mp = avl.index_object("chair", init_categories=MP3D, decay_rate=0.01)
+
+    # the serving query against the staged path: its labels (K7 with the
+    # text normalised, as the JAX serving program scores) -> the dense
+    # heat.  index_map scores the raw template means (the reference's
+    # get_lseg_score), so where the two texts' norms differ the two masks
+    # may differ too; that count is printed, not held
+    out = vm.make_serving_query(k=8)("chair")
+    heat_s, goal_s = fetch_np(out["heat"], out["goal_pos"])
+    text_s = torch.cat([enc.get_text_feats_multiple_templates(
+        [w], as_device=True) for w in ("chair", "other")])
+    labels_s = _uncounted(sim.score_argmax, feats, text_s, True,
+                          True).cpu().numpy()
+    ref_s = sim.score_features_ref(feats, text_s, normalize_text=True)
+    clear_s = _clear_rows(ref_s).cpu().numpy()
+    same_s = np.array_equal(labels_s[clear_s],
+                            ref_s.argmax(1).cpu().numpy()[clear_s])
+    staged = heatmap_from_mask_3d(
+        vm.grid_pos, labels_s == 0, cell_size=vm.cs, decay_rate=0.01,
+        method="dense", lattice_unit=1.0, grid_shape=vm.occupied_ids.shape,
+        device="cuda")
+    print(f"  serving mask vs index_map's (raw text norms): "
+          f"{int(((labels_s == 0) != fused).sum())} of {n} voxels differ; "
+          f"{int((~clear_s).sum())} near ties")
+    vm.customize_obstacle_map(["chair", "table", "sofa"], ["table"])
+    contours, _, _ = vm.get_pos("chair")
+    checks = {
+        "init_categories scores == plain (atol 1e-4)": err <= 1e-4,
+        "index_map with categories == plain argmax on clear rows": ok_cat,
+        "index_map by K7 == plain argmax on clear rows": ok_fused,
+        "index_object f32 finite in [0, 1], 1 on targets":
+            bool(np.isfinite(f32).all() and f32.min() >= 0
+                 and f32.max() <= 1 and (f32[fused] == 1).all()),
+        "u8 within 0.5/255 of f32":
+            float(np.abs(u8 - f32).max()) <= 0.5 / 255 + 1e-7,
+        "device == f32": np.array_equal(dev.cpu().numpy(), f32),
+        "topk == stable top-k of f32": bool(
+            np.array_equal(vals, f32[order])
+            and np.array_equal(tpos, vm.grid_pos[order])),
+        "goal == grid_pos[argmax(f32)]":
+            np.array_equal(goal, vm.grid_pos[int(np.argmax(f32))]),
+        "index_object with init_categories in [0, 1]":
+            bool(mp.shape == (n,) and mp.min() >= 0 and mp.max() <= 1),
+        "make_serving_query == dense heat of its labels (atol 1e-5)": bool(
+            np.abs(heat_s - staged).max() <= 1e-5
+            and np.array_equal(goal_s,
+                               vm.grid_pos[int(np.argmax(staged))])),
+        "serving labels == plain argmax on clear rows": same_s,
+        "customize_obstacle_map and get_pos ran":
+            vm.obstacles_new_cropped is not None
+            and isinstance(contours, list),
+    }
+    print(f"  index_object('chair'): {int((f32 == 1).sum())} voxels at 1, "
+          f"goal {np.asarray(goal).tolist()}; get_pos: {len(contours)} "
+          "islands")
+    for name, ok in checks.items():
+        print(f"  {'pass' if ok else 'FAIL'}: {name}")
+    if not all(checks.values()):
+        raise AssertionError("object query on the built map failed")
 
 
 def main() -> int:
@@ -488,6 +920,11 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from avlmaps_torch.kernels import build
 
+    # a reference states and sets both (cuDNN defaults to TF32); the port
+    # never switches either on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -502,8 +939,27 @@ def main() -> int:
 
     print("kernel checks (4 frames = 8 crops, M=7208; 31104 points):")
     rows = kernel_checks()
-    print("slice: ViT-L/16 bf16 map build, 720x1080, gs=1000 vh=30 cap=1e6:")
-    slice_run(rows)
+    print("score kernel checks (N=1e6, D=512, C=22 and 41):")
+    rows += score_kernel_checks()
+    with tempfile.TemporaryDirectory() as tmp:
+        print("slice 1: ViT-L/16 bf16 map build, 720x1080, gs=1000 vh=30 "
+              "cap=1e6:")
+        scene = slice_run(rows[:4], Path(tmp))
+        print("slice 2: CLIP ViT-B/32 text tower, card vs CPU:")
+        enc = clip_check()
+        for r in rows:
+            r["fn"].launches = 0
+        print("slice 2: serving object query, 1e6 voxels x 512, "
+              "1000x1000x30 grid, 22 categories, k=64:")
+        serving_run(enc)
+        print("slice 2: object query on the map slice 1 built:")
+        object_query_run(enc, scene)
+        for r in rows[4:]:
+            r["launches"] = r["fn"].launches
+    launches = {r["name"]: r["launches"] for r in rows[4:]}
+    print(f"  slice 2 launches: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError("a kernel of the query path never launched")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,8 +7,9 @@ without the repository's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Shapes are small but inside what each kernel takes (width 256, head dim
-64, a partial last row block); chip_smoke.py repeats the checks at the
-map-building shapes.
+64, a partial last row block; for K7/K8 odd row counts, D from 24 to 768
+and a C that needs two shared-memory chunks); chip_smoke.py repeats the
+checks at the map-building and serving-query shapes.
 """
 
 import math
@@ -18,6 +19,7 @@ import torch
 
 from avlmaps_torch.ops import fused_vit as fv
 from avlmaps_torch.ops import segment_scatter as ss
+from avlmaps_torch.ops import similarity as sim
 from avlmaps_torch.ops import voxel_fusion as vf
 
 pytestmark = pytest.mark.cuda
@@ -129,3 +131,58 @@ def test_vit_block_on_the_card(gen):
         want = blk.cpu()(x.cpu(), t_real=50).float()
     assert math.isfinite(float(got.abs().max()))
     torch.testing.assert_close(got, want, atol=5e-2, rtol=2e-2)
+
+
+# K7/K8 shapes: the serving width, the tiny CLIP width, a width that
+# needs 6 float4 slices per lane, and C = 60 > 48, which takes two
+# category chunks of shared memory at D = 512
+SCORE_SHAPES = [(5000, 512, 22), (3001, 24, 7), (2000, 768, 13),
+                (1500, 512, 60)]
+
+
+@pytest.mark.parametrize("norm", [(False, False), (True, True),
+                                  (True, False), (False, True)])
+@pytest.mark.parametrize("n,d,c", SCORE_SHAPES)
+def test_score_features_kernel(gen, n, d, c, norm):
+    x = torch.randn(n, d, generator=gen, device="cuda") * 2
+    t = torch.randn(c, d, generator=gen, device="cuda")
+    before = sim.score_features.launches
+    got = sim.score_features(x, t, *norm)
+    torch.cuda.synchronize()
+    assert sim.score_features.launches > before
+    # f32 sums of D products in another order: a few f32 ulps of |x||t|
+    torch.testing.assert_close(got, sim.score_features_ref(x, t, *norm),
+                               atol=1e-5 * d ** 0.5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("normalize_text", [False, True])
+@pytest.mark.parametrize("n,d,c", SCORE_SHAPES)
+def test_score_argmax_kernel(gen, n, d, c, normalize_text):
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    t = torch.randn(c, d, generator=gen, device="cuda")
+    got = sim.score_argmax(x, t, normalize_map=True,
+                           normalize_text=normalize_text)
+    want = sim.score_argmax_ref(x, t, normalize_text=normalize_text)
+    s = sim.score_features_ref(x, t, normalize_text=normalize_text)
+    top2 = s.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5 * top2[:, 0].abs()
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert torch.equal(got[clear], want[clear])
+
+
+def test_score_argmax_kernel_ties_go_low(gen):
+    """Zero rows tie every category and identical categories tie each
+    other (in one shared-memory chunk and across two): every affected row
+    takes the lower index."""
+    n, d = 4096 + 512, 512
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    x[:4096] = 0
+    t = torch.randn(60, d, generator=gen, device="cuda")
+    t[9] = t[4]
+    t[50] = t[4]
+    for c in (22, 60):
+        got = sim.score_argmax(x, t[:c].contiguous(), normalize_text=True)
+        torch.cuda.synchronize()
+        assert bool((got[:4096] == 0).all())
+        assert not bool(((got == 9) | (got == 50)).any())
+        assert bool((got[4096:] == 4).any())

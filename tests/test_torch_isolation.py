@@ -34,7 +34,13 @@ def test_sources_cover_the_package():
              for p in SOURCES[:-1]}
     assert {"map/vlmap_builder.py", "ops/fused_vit.py",
             "ops/segment_scatter.py", "ops/voxel_fusion.py",
-            "models/lseg/vit.py", "kernels/build.py"} <= names
+            "models/lseg/vit.py", "kernels/build.py",
+            "models/clip/tokenizer.py", "models/clip/model.py",
+            "models/clip/port.py", "models/clip/features.py",
+            "ops/similarity.py", "ops/heatmap.py", "ops/delivery.py",
+            "ops/pooling.py", "ops/morphology.py",
+            "utils/category_matching.py", "map/map_base.py",
+            "map/vlmap.py", "map/avlmap.py"} <= names
 
 
 def _no_card(monkeypatch):
@@ -68,6 +74,35 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch,
                                crop_size=32)
 
 
+def test_query_entry_points_default_to_cuda_and_raise_without_a_card(
+        monkeypatch):
+    import numpy as np
+
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.avlmap import AVLMap
+    from avlmaps_torch.map.vlmap import VLMap
+    from avlmaps_torch.models.clip import ClipEncoder
+    from avlmaps_torch.ops.delivery import (make_object_query,
+                                            make_text_object_query)
+    from avlmaps_torch.ops.heatmap import heatmap_from_mask_3d
+
+    cpu_encoder = ClipEncoder("tiny", device="cpu")
+    _no_card(monkeypatch)
+    cfg = load_config()
+    calls = [
+        lambda: ClipEncoder("tiny"),
+        lambda: VLMap(cfg.map_config),
+        lambda: AVLMap(cfg),
+        lambda: make_text_object_query(cpu_encoder, (8, 8, 4)),
+        lambda: make_object_query((8, 8, 4)),
+        lambda: heatmap_from_mask_3d(np.zeros((4, 3), np.int32),
+                                     np.ones(4, bool)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
+
+
 def test_cpu_is_taken_only_when_asked(monkeypatch):
     from avlmaps_torch.ops.voxel_fusion import init_fusion_state
 
@@ -85,5 +120,8 @@ def test_kernels_build_lazily():
 
     importlib.import_module("avlmaps_torch.ops.fused_vit")
     importlib.import_module("avlmaps_torch.ops.segment_scatter")
+    importlib.import_module("avlmaps_torch.ops.similarity")
+    importlib.import_module("avlmaps_torch.ops.delivery")
     assert build._libs == {}
-    assert set(build.sources()) == {"fused_vit", "segment_scatter"}
+    assert set(build.sources()) == {"fused_vit", "segment_scatter",
+                                    "similarity"}

@@ -270,3 +270,38 @@ def test_normalize_image_matches_jax(rng):
     img = rng.integers(0, 256, (5, 7, 3)).astype(np.uint8)
     np.testing.assert_array_equal(twin.normalize_image(img),
                                   jwin.normalize_image(img))
+
+
+def test_lseg_checkpoint_loader_matches_jax_porter(tmp_path):
+    """The reference-layout Lightning checkpoint of the repository's torch
+    oracle goes through the port's loader to the same weights as through
+    the JAX package's porter and the flax bridge, and runs the oracle's
+    forward."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from avlmaps_tpu.models.lseg.port import \
+        load_lseg_checkpoint as jax_load
+    from avlmaps_torch.models.lseg.port import load_lseg_checkpoint
+    from tools.torch_reference.lseg_torch import (
+        TorchLSegSpec, build_torch_lseg, export_reference_state_dict)
+
+    oracle = build_torch_lseg(TorchLSegSpec.tiny(), seed=0)
+    sd = export_reference_state_dict(oracle)  # "net."-prefixed keys
+    path = tmp_path / "demo.ckpt"
+    torch.save({"state_dict": sd, "epoch": 200}, path)
+    got = load_lseg_checkpoint(str(path))
+    want = params_from_flax(jax_load(str(path)))
+    assert set(got) == set(want)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    tnet = LSegNet(LSegConfig.tiny(), device="cpu")
+    tnet.load_state_dict(got, strict=True)
+    x = np.random.default_rng(5).normal(size=(1, 32, 32, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        out = tnet(torch.from_numpy(x)).numpy()
+        ref = oracle(torch.from_numpy(x.transpose(0, 3, 1, 2))).numpy()
+    np.testing.assert_allclose(out.transpose(0, 3, 1, 2), ref, rtol=5e-3,
+                               atol=5e-3)
