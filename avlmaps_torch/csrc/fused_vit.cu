@@ -2,16 +2,21 @@
 //
 // Replaces the Pallas TPU kernels of avlmaps_tpu/ops/fused_vit.py:
 //   K1 avl_ln_matmul        <- ln_matmul        (_ln_matmul_kernel)
-//   K2 avl_mha              <- mha_oneshot_2d   (_mha_kernel)
+//   K2 avl_mha              <- mha_oneshot_2d   (_mha_kernel), and the
+//                              (B, H, T, D) attention of
+//                              models/lseg/vit.py::_flash_attention /
+//                              _splash_attention (JAX's bundled kernels)
 //   K3 avl_ln_mlp_residual  <- ln_mlp_residual  (_ln_mlp_kernel)
+//   K6 avl_gelu_matmul      <- gelu_matmul      (_gelu_matmul_kernel)
 //
 // What bounds them on an H100: at the map-building shape (8 crops of 480^2,
-// M = 8 * 901 = 7208 token rows, width 1024) all three are bf16 tensor-core
+// M = 8 * 901 = 7208 token rows, width 1024) all four are bf16 tensor-core
 // work well above the card's ~295 FLOP/byte ridge (K1: 45 GFLOP over
-// 21 MB; K3: 121 GFLOP over 46 MB; K2: 27 GFLOP over 59 MB), so the bound is
-// the 989 TFLOP/s bf16 peak.  The design keeps the operands of every
-// product in shared memory and feeds the tensor cores through WMMA
-// (mma.sync, bf16 in, f32 accumulate); wgmma/TMA pipelines are later work.
+// 21 MB; K3: 121 GFLOP over 46 MB; K2: 27 GFLOP over 59 MB; K6: 60 GFLOP
+// over 69 MB), so the bound is the 989 TFLOP/s bf16 peak.  The design keeps
+// the operands of every product in shared memory and feeds the tensor cores
+// through WMMA (mma.sync, bf16 in, f32 accumulate); wgmma/TMA pipelines are
+// later work.
 //
 // K1: two launches.  ln_stats_kernel computes each row's mean and
 //     1/sqrt(var + eps) in f32 (two-pass, one warp per row; 8 bytes a row
@@ -27,11 +32,13 @@
 // K2: flash-style.  K and V of one head at T=901 are 2 x 115 KB in bf16,
 //     too much for one block beside Q and the logits, so a block owns
 //     (batch, head, 64 queries) and walks K/V in 64-key tiles with an
-//     online-softmax running max and sum (f32).  q, k and v are read at
-//     column offsets h*64, W+h*64, 2W+h*64 of the (B*T, 3W) qkv matrix
-//     and the output lands at (row, h*64) of (B*T, W): no transpose, no
-//     pad copy.  Keys >= t_real are masked to -inf.  P is rounded to bf16
-//     for the PV product, as the TPU kernel does; the row sum stays f32.
+//     online-softmax running max and sum (f32).  q, k, v and the output are
+//     addressed by (batch, head, token) element strides: the (B*T, 3W) qkv
+//     matrix (q, k, v at column offsets h*64, W+h*64, 2W+h*64, the output
+//     at (row, h*64) of (B*T, W)) and contiguous (B, H, T, 64) tensors are
+//     the same kernel, with no transpose and no pad copy.  Keys >= t_real
+//     are masked to -inf.  P is rounded to bf16 for the PV product, as the
+//     TPU kernel does; the row sum stays f32.
 // K3: K1's row statistics, then two launches of the K1 GEMM body (a fused
 //     single-kernel form is later work): LN -> fc -> +b1 -> exact-erf GELU
 //     (erff), which writes the (M, 4096) bf16 intermediate -- the same
@@ -40,6 +47,11 @@
 //     (proj) across its column blocks, so at M=7208 each 8 MB weight is
 //     read ceil(M/64) = 113 times per launch, from L2 (50 MB) after the
 //     first pass; the intermediate costs 2 x 59 MB of device traffic.
+// K6: the same GEMM body with a GELU prologue: each landed x slice becomes
+//     bf16(0.5 x (1 + erff(x / sqrt 2))) in shared memory, as K1 normalises
+//     its slice, so the GELU output never reaches device memory; the
+//     epilogue adds the bias.  The TPU kernel's 10-term polynomial erf was
+//     a VPU economy; erff is K3's GELU.
 //
 // Every launcher returns cudaGetLastError() so the Python wrapper can
 // raise on a refused launch.
@@ -64,6 +76,7 @@ constexpr int LDC = BN + 4;        // f32 epilogue tile row stride
 constexpr int STAGES = 3;          // cp.async ring depth
 constexpr int GEMM_THREADS = 256;  // 8 warps: 2 (rows) x 4 (cols), 32x32 each
 
+enum { PRO_NONE = 0, PRO_LN = 1, PRO_GELU = 2 };
 enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESID = 2 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -130,13 +143,14 @@ ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats,
   if (lane == 0) stats[row] = make_float2(mu, rstd);
 }
 
-// out[M, N] = epi(A'[M, K] . W[N, K]^T + bias) with A' = LN(A) when LN.
-// W is a torch Linear weight (out_features, in_features), row-major.  A and
-// W stream through a STAGES-deep cp.async ring in 32-deep slices; with LN
-// each A slice is normalised in shared memory from the precomputed row
-// statistics before the tensor cores read it, so the LN output never
-// reaches device memory.  The f32 epilogue tile aliases the ring.
-template <bool LN, int EPI>
+// out[M, N] = epi(A'[M, K] . W[N, K]^T + bias) with A' = LN(A) (PRO_LN),
+// GELU(A) (PRO_GELU) or A.  W is a torch Linear weight (out_features,
+// in_features), row-major.  A and W stream through a STAGES-deep cp.async
+// ring in 32-deep slices; with a prologue each A slice is transformed in
+// shared memory (LN from the precomputed row statistics) before the tensor
+// cores read it, so the transformed A never reaches device memory.  The
+// f32 epilogue tile aliases the ring.
+template <int PRO, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const bf16* __restrict__ A, const float2* __restrict__ stats,
             const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -171,7 +185,7 @@ gemm_kernel(const bf16* __restrict__ A, const float2* __restrict__ stats,
     }
   };
 
-  if (LN) {
+  if (PRO == PRO_LN) {
     for (int r = tid; r < BM; r += GEMM_THREADS)
       St[r] = m0 + r < M ? stats[m0 + r] : make_float2(0.f, 0.f);
   }
@@ -193,16 +207,25 @@ gemm_kernel(const bf16* __restrict__ A, const float2* __restrict__ stats,
     __syncthreads();  // stage kt landed; stage kt-1 fully consumed
     bf16* as = As + (kt % STAGES) * BM * LDB;
     const bf16* bs = Bs + (kt % STAGES) * BN * LDB;
-    if (LN) {
+    if (PRO != PRO_NONE) {
       const int r = tid / (BK / 8), q = (tid % (BK / 8)) * 8;
       const int k = kt * BK + q;
-      const float2 st = St[r];
       uint4 u = *reinterpret_cast<uint4*>(as + r * LDB + q);
       bf16* hv = reinterpret_cast<bf16*>(&u);
+      if (PRO == PRO_LN) {
+        const float2 st = St[r];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        hv[j] = __float2bfloat16((__bfloat162float(hv[j]) - st.x) * st.y
-                                 * gamma[k + j] + beta[k + j]);
+        for (int j = 0; j < 8; ++j)
+          hv[j] = __float2bfloat16((__bfloat162float(hv[j]) - st.x) * st.y
+                                   * gamma[k + j] + beta[k + j]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float v = __bfloat162float(hv[j]);
+          hv[j] = __float2bfloat16(0.5f * v
+                                   * (1.f + erff(v * 0.70710678118654752f)));
+        }
+      }
       *reinterpret_cast<uint4*>(as + r * LDB + q) = u;
       __syncthreads();
     }
@@ -278,17 +301,17 @@ cudaError_t launch_stats(const bf16* x, float2* stats, int M, int K,
   return cudaGetLastError();
 }
 
-template <bool LN, int EPI>
+template <int PRO, int EPI>
 cudaError_t launch_gemm(const bf16* A, const float2* stats,
                         const float* gamma, const float* beta, const bf16* W,
                         const float* bias, const bf16* resid, bf16* out,
                         int M, int N, int K, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<LN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_kernel<PRO, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(GEMM_SMEM));
   if (e != cudaSuccess) return e;
   dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_kernel<LN, EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
+  gemm_kernel<PRO, EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
       A, stats, gamma, beta, W, bias, resid, out, M, N, K);
   return cudaGetLastError();
 }
@@ -306,9 +329,17 @@ constexpr size_t MHA_SMEM =
     + 4 * 16 * LDH * sizeof(bf16)         // per-warp probabilities
     + 4 * 16 * LDS * sizeof(float);       // per-warp output accumulator
 
+// Element strides of one operand: batch, head, token (the head dim is
+// contiguous).
+struct Strides {
+  long long b, h, t;
+};
+
 __global__ void __launch_bounds__(MHA_THREADS)
-mha_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T,
-           int H, int t_real, float scale) {
+mha_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, bf16* __restrict__ out, Strides sq,
+           Strides sk, Strides sv, Strides so, int T, int t_real,
+           float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + QT * LDH;
@@ -317,24 +348,24 @@ mha_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T,
   bf16* Ps = reinterpret_cast<bf16*>(Ss + 4 * 16 * LDS);
   float* Os = reinterpret_cast<float*>(Ps + 4 * 16 * LDH);
 
-  const int Wd = H * HD, ld = 3 * Wd;
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16* base = qkv + static_cast<size_t>(b) * T * ld;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
 
-  // 64 rows x 64 columns from column offset `col`; rows >= T read as zero
-  auto load_tile = [&](bf16* dst, int r0, int col) {
+  // tokens r0..r0+63 of one (batch, head); tokens >= T read as zero
+  auto load_tile = [&](bf16* dst, const bf16* src, long long st, int r0) {
     for (int c = tid; c < 64 * (HD / 8); c += MHA_THREADS) {
-      const int r = c / (HD / 8), q = (c % (HD / 8)) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
+      const int r = c / (HD / 8), e = (c % (HD / 8)) * 8;
+      uint4 val = make_uint4(0, 0, 0, 0);
       if (r0 + r < T)
-        v = *reinterpret_cast<const uint4*>(
-            base + static_cast<size_t>(r0 + r) * ld + col + q);
-      *reinterpret_cast<uint4*>(dst + r * LDH + q) = v;
+        val = *reinterpret_cast<const uint4*>(src + (r0 + r) * st + e);
+      *reinterpret_cast<uint4*>(dst + r * LDH + e) = val;
     }
   };
 
-  load_tile(Qs, q0, h * HD);
+  load_tile(Qs, qb, sq.t, q0);
   float* Sw = Ss + warp * 16 * LDS;
   bf16* Pw = Ps + warp * 16 * LDH;
   float* Ow = Os + warp * 16 * LDS;
@@ -348,8 +379,8 @@ mha_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T,
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * KT;
     __syncthreads();  // previous tile fully consumed
-    load_tile(Ks, k0, Wd + h * HD);
-    load_tile(Vs, k0, 2 * Wd + h * HD);
+    load_tile(Ks, kb, sk.t, k0);
+    load_tile(Vs, vb, sv.t, k0);
     __syncthreads();
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> s[4];
@@ -361,9 +392,9 @@ mha_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T,
       wmma::load_matrix_sync(a, Qs + warp * 16 * LDH + kk, LDH);
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, Ks + n * 16 * LDH + kk, LDH);
-        wmma::mma_sync(s[n], a, kb, s[n]);
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+        wmma::load_matrix_sync(kf, Ks + n * 16 * LDH + kk, LDH);
+        wmma::mma_sync(s[n], a, kf, s[n]);
       }
     }
 #pragma unroll
@@ -372,13 +403,13 @@ mha_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T,
     __syncwarp();
 
     // online softmax over this tile for row r (f32 throughout)
-    float v[32];
+    float lg[32];
     float mx = -INFINITY;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float x = Sw[r * LDS + c0 + i] * scale;
       if (k0 + c0 + i >= t_real) x = -INFINITY;
-      v[i] = x;
+      lg[i] = x;
       mx = fmaxf(mx, x);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -387,7 +418,7 @@ mha_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T,
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const float p = expf(v[i] - m_new);
+      const float p = expf(lg[i] - m_new);
       sum += p;
       Pw[r * LDH + c0 + i] = __float2bfloat16(p);
     }
@@ -408,9 +439,9 @@ mha_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T,
       wmma::load_matrix_sync(a, Pw + kk, LDH);
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, Vs + kk * LDH + n * 16, LDH);
-        wmma::mma_sync(o[n], a, vb, o[n]);
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
+        wmma::load_matrix_sync(vf, Vs + kk * LDH + n * 16, LDH);
+        wmma::mma_sync(o[n], a, vf, o[n]);
       }
     }
 #pragma unroll
@@ -421,7 +452,7 @@ mha_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T,
 
   const int row = q0 + warp * 16 + r;
   if (row < T) {
-    bf16* dst = out + (static_cast<size_t>(b) * T + row) * Wd + h * HD + c0;
+    bf16* dst = out + b * so.b + h * so.h + row * so.t + c0;
 #pragma unroll
     for (int i = 0; i < 32; i += 8) {
       uint4 u;
@@ -444,7 +475,7 @@ extern "C" int avl_ln_matmul(const void* x, const void* gamma,
   cudaError_t e = launch_stats(static_cast<const bf16*>(x),
                                static_cast<float2*>(stats), M, K, eps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_gemm<true, EPI_BIAS>(
+  return static_cast<int>(launch_gemm<PRO_LN, EPI_BIAS>(
       static_cast<const bf16*>(x), static_cast<const float2*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const bf16*>(w), static_cast<const float*>(bias), nullptr,
@@ -461,27 +492,43 @@ extern "C" int avl_ln_mlp_residual(const void* x, const void* gamma,
   cudaError_t e = launch_stats(static_cast<const bf16*>(x),
                                static_cast<float2*>(stats), M, K, eps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm<true, EPI_GELU>(
+  e = launch_gemm<PRO_LN, EPI_GELU>(
       static_cast<const bf16*>(x), static_cast<const float2*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1), nullptr,
       static_cast<bf16*>(h), M, N1, K, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_gemm<false, EPI_RESID>(
+  return static_cast<int>(launch_gemm<PRO_NONE, EPI_RESID>(
       static_cast<const bf16*>(h), nullptr, nullptr, nullptr,
       static_cast<const bf16*>(w2), static_cast<const float*>(b2),
       static_cast<const bf16*>(x), static_cast<bf16*>(out), M, K, N1, s));
 }
 
-extern "C" int avl_mha(const void* qkv, void* out, int B, int T, int H,
-                       int t_real, float scale, void* stream) {
+// strides: 12 element strides, (batch, head, token) of q, k, v and out.
+extern "C" int avl_mha(const void* q, const void* k, const void* v,
+                       void* out, const long long* strides, int B, int T,
+                       int H, int t_real, float scale, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       mha_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(MHA_SMEM));
   if (e != cudaSuccess) return static_cast<int>(e);
+  const Strides sq{strides[0], strides[1], strides[2]};
+  const Strides sk{strides[3], strides[4], strides[5]};
+  const Strides sv{strides[6], strides[7], strides[8]};
+  const Strides so{strides[9], strides[10], strides[11]};
   dim3 grid((T + QT - 1) / QT, H, B);
   mha_kernel<<<grid, MHA_THREADS, MHA_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), T, H, t_real,
-      scale);
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, sk, sv, so, T,
+      t_real, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int avl_gelu_matmul(const void* x, const void* w,
+                               const void* bias, void* out, int M, int N,
+                               int K, void* stream) {
+  return static_cast<int>(launch_gemm<PRO_GELU, EPI_BIAS>(
+      static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
+      static_cast<const bf16*>(w), static_cast<const float*>(bias), nullptr,
+      static_cast<bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream)));
 }

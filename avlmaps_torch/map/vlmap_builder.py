@@ -5,18 +5,29 @@ avlmaps/map/vlmap_builder.py:54-185).  Per batch of frames, one device
 step runs the sliding-window LSeg forward, backprojects the sampled depth
 pixels, transforms them to the map frame, computes grid ids and the
 ConceptFusion weight and fuses the batch into the voxel accumulators.  A
-producer thread decodes frames, draws the pixel subsample with numpy (the
-same generator as the JAX package, so the draws are bit-identical) and
-copies each lean canvas batch to the card ahead of the step.
+producer thread decodes frames (or copies them out of a packed scene) and
+copies each batch to the card ahead of the step.  Every single-device
+build of the JAX package is here:
 
-This slice ports the canvas transport with host sampling on one device;
-``transport="frame"``, ``sampling="device"`` and ``mesh=`` raise
-``NotImplementedError``.
+- ``transport="canvas"``, ``sampling="host"`` (the default): the producer
+  draws the pixel subsample with numpy (the same generator as the JAX
+  package, so the draws are bit-identical) and ships the lean canvas
+  batch (``make_frame_step_canvas``);
+- ``transport="canvas"``, ``sampling="device"``: the producer ships the
+  canvas and the full-res uint16 depth plane, and the step draws the
+  pixels on the card with JAX's threefry bits
+  (``make_frame_step_device_sampled``, utils/threefry.py): no per-point
+  host work;
+- ``transport="frame"``: full uint8 frames, resized on the card
+  (``make_frame_step``), pixels drawn on the host.
+
+``mesh=`` (the multi-device build) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from pathlib import Path
 from typing import Callable, Optional, Tuple, Union
 
@@ -36,6 +47,7 @@ from avlmaps_torch.ops.voxel_fusion import (VoxelFusionState,
                                             export_fusion_state, fuse_points,
                                             init_fusion_state,
                                             restore_fusion_state)
+from avlmaps_torch.utils import threefry
 from avlmaps_torch.utils.device import resolve_device
 from avlmaps_torch.utils.profiling import RateMeter
 
@@ -104,6 +116,68 @@ def make_point_geometry(*, gs: int, cs: float, vh: int,
     return geometry
 
 
+def _canvas_features(lseg_apply: Callable, lseg_eval: str, canvas, fx, fy,
+                     base_size: int, crop_size: int, half_res_apply: bool):
+    if lseg_eval == "whole":
+        return whole_canvas_features_at_points(lseg_apply, canvas, fx, fy)
+    return features_at_points(lseg_apply, canvas, fx, fy, base_size,
+                              crop_size, half_res_apply=half_res_apply)
+
+
+def _check_eval(lseg_eval: str) -> None:
+    if lseg_eval not in ("sliding", "whole"):
+        raise ValueError(f"lseg_eval={lseg_eval!r}: use 'sliding' or "
+                         "'whole'")
+
+
+def make_frame_step(lseg_apply: Callable, *, gs: int, cs: float, vh: int,
+                    calib_mat: np.ndarray, image_hw: Tuple[int, int],
+                    base_size: int = 520, crop_size: int = 480,
+                    min_depth: float = 0.1, max_depth: float = 6.0,
+                    half_res_apply: bool = False, rgb_uint8: bool = False,
+                    dedup_scatter: Optional[bool] = None,
+                    device: Union[str, torch.device] = "cuda") -> Callable:
+    """The device step for one full-frame batch (the frame transport).
+
+    Returns ``step(state, rgb, depth, pose, sample_idx, frame_valid) ->
+    state``: ``rgb`` (B, H, W, 3) normalised, or uint8 normalised on the
+    device with ``rgb_uint8=True``; ``depth`` (B, H, W) f32 metres, or
+    integer millimetres (a uint16 plane as the loader ships it); the
+    canvas resize runs on the device inside the sliding window.
+    ``dedup_scatter``: see ``fuse_points`` (None = on for a CUDA state)."""
+    geometry = make_point_geometry(
+        gs=gs, cs=cs, vh=vh, calib_mat=calib_mat, image_hw=image_hw,
+        base_size=base_size, crop_size=crop_size, min_depth=min_depth,
+        max_depth=max_depth, device=device)
+
+    def step(state: VoxelFusionState, rgb: torch.Tensor,
+             depth: torch.Tensor, pose: torch.Tensor,
+             sample_idx: torch.Tensor,
+             frame_valid: torch.Tensor) -> VoxelFusionState:
+        rgb_norm = (rgb.to(torch.float32) * (1.0 / 127.5) - 1.0
+                    if rgb_uint8 else rgb)
+        if not depth.is_floating_point():  # millimetres
+            depth = depth.to(torch.float32) * 1e-3
+        b = rgb_norm.shape[0]
+        idx = sample_idx.long()
+        z = torch.gather(depth.reshape(b, -1), 1, idx)  # (B, N)
+        vids, fx, fy, alpha, valid = geometry(z, sample_idx, pose)
+        feats = features_at_points(lseg_apply, rgb_norm, fx, fy, base_size,
+                                   crop_size, half_res_apply=half_res_apply)
+        # colour at the sampled pixel, back from the normalised frame
+        rgb_u8 = (rgb_norm * 0.5 + 0.5) * 255.0
+        rgbs = torch.gather(rgb_u8.reshape(b, -1, 3), 1,
+                            idx[..., None].expand(-1, -1, 3))
+        valid = valid & frame_valid[:, None]
+        d = feats.shape[-1]
+        return fuse_points(
+            state, vids.reshape(-1), feats.reshape(-1, d),
+            rgbs.reshape(-1, 3), alpha.reshape(-1), valid.reshape(-1),
+            gs=gs, vh=vh, dedup_scatter=dedup_scatter)
+
+    return step
+
+
 def make_frame_step_canvas(lseg_apply: Callable, *, gs: int, cs: float,
                            vh: int, calib_mat: np.ndarray,
                            image_hw: Tuple[int, int], base_size: int = 520,
@@ -111,6 +185,7 @@ def make_frame_step_canvas(lseg_apply: Callable, *, gs: int, cs: float,
                            max_depth: float = 6.0,
                            half_res_apply: bool = True,
                            lseg_eval: str = "sliding",
+                           dedup_scatter: Optional[bool] = None,
                            device: Union[str, torch.device] = "cuda"
                            ) -> Callable:
     """The device step for one CanvasBatch (pipeline.transport).
@@ -120,9 +195,7 @@ def make_frame_step_canvas(lseg_apply: Callable, *, gs: int, cs: float,
     ``"whole"`` one forward over the padded canvas.  Returns
     ``step(state, canvas_u8, z_mm, rgb_pts, pose, sample_idx,
     frame_valid) -> state`` (the state is updated in place)."""
-    if lseg_eval not in ("sliding", "whole"):
-        raise ValueError(f"lseg_eval={lseg_eval!r}: use 'sliding' or "
-                         "'whole'")
+    _check_eval(lseg_eval)
     geometry = make_point_geometry(
         gs=gs, cs=cs, vh=vh, calib_mat=calib_mat, image_hw=image_hw,
         base_size=base_size, crop_size=crop_size, min_depth=min_depth,
@@ -135,19 +208,89 @@ def make_frame_step_canvas(lseg_apply: Callable, *, gs: int, cs: float,
         canvas = canvas_u8.to(torch.float32) * (1.0 / 127.5) - 1.0
         z = z_mm.to(torch.float32) * 1e-3  # (B, N) metres
         vids, fx, fy, alpha, valid = geometry(z, sample_idx, pose)
-        if lseg_eval == "whole":
-            feats = whole_canvas_features_at_points(lseg_apply, canvas, fx,
-                                                    fy)
-        else:
-            feats = features_at_points(lseg_apply, canvas, fx, fy, base_size,
-                                       crop_size,
-                                       half_res_apply=half_res_apply)
+        feats = _canvas_features(lseg_apply, lseg_eval, canvas, fx, fy,
+                                 base_size, crop_size, half_res_apply)
         valid = valid & frame_valid[:, None]
         d = feats.shape[-1]
         return fuse_points(
             state, vids.reshape(-1), feats.reshape(-1, d),
             rgb_pts.to(torch.float32).reshape(-1, 3), alpha.reshape(-1),
-            valid.reshape(-1), gs=gs, vh=vh)
+            valid.reshape(-1), gs=gs, vh=vh, dedup_scatter=dedup_scatter)
+
+    return step
+
+
+def device_sample_indices(frame_ids: torch.Tensor, *, seed: int,
+                          max_pts: int, n_pixels: int) -> torch.Tensor:
+    """The device sampler's draws: for each frame, ``max_pts`` flat pixel
+    indices ``randint(fold_in(PRNGKey(seed), frame_id), (max_pts,), 0,
+    n_pixels)`` -- the JAX package's threefry bits, exactly -- sorted
+    ascending.  (B,) int32 ids -> (B, max_pts) int64, on their device."""
+    key = threefry.fold_in(threefry.prng_key(seed), frame_ids)
+    idx = threefry.randint(key, max_pts, 0, n_pixels)
+    return torch.sort(idx, dim=1).values
+
+
+def make_frame_step_device_sampled(
+        lseg_apply: Callable, *, gs: int, cs: float, vh: int,
+        calib_mat: np.ndarray, image_hw: Tuple[int, int],
+        base_size: int = 520, crop_size: int = 480, min_depth: float = 0.1,
+        max_depth: float = 6.0, half_res_apply: bool = True,
+        lseg_eval: str = "whole", max_pts: int = 7776, seed: int = 0,
+        dedup_scatter: Optional[bool] = None,
+        device: Union[str, torch.device] = "cuda") -> Callable:
+    """The step that samples its pixels on the device, for one
+    RawCanvasBatch (the canvas and the full-res uint16 depth plane).
+
+    Returns ``step(state, canvas_u8, depth_mm, pose, frame_ids,
+    frame_valid) -> state``.  Per frame the device draws ``max_pts``
+    pixels from a threefry fold of the frame id (deterministic per frame,
+    so a resumed build draws the same; :func:`device_sample_indices`),
+    masks repeated draws after the sort so no pixel fuses twice, gathers
+    depth at the samples from the shipped plane, and reads colour from the
+    canvas at the align-corners-scaled pixel, ``rint(x * sx)`` (half to
+    even in both packages).  Nothing in the step waits on the device."""
+    _check_eval(lseg_eval)
+    geometry = make_point_geometry(
+        gs=gs, cs=cs, vh=vh, calib_mat=calib_mat, image_hw=image_hw,
+        base_size=base_size, crop_size=crop_size, min_depth=min_depth,
+        max_depth=max_depth, device=device)
+    h, w = image_hw
+    ch, cw, _, _, _ = plan_windows(h, w, base_size, crop_size)
+    sy = (ch - 1) / max(h - 1, 1)
+    sx = (cw - 1) / max(w - 1, 1)
+
+    def step(state: VoxelFusionState, canvas_u8: torch.Tensor,
+             depth_mm: torch.Tensor, pose: torch.Tensor,
+             frame_ids: torch.Tensor,
+             frame_valid: torch.Tensor) -> VoxelFusionState:
+        b = canvas_u8.shape[0]
+        idx = device_sample_indices(frame_ids, seed=seed, max_pts=max_pts,
+                                    n_pixels=h * w)
+        dup = torch.zeros_like(idx, dtype=torch.bool)
+        dup[:, 1:] = idx[:, 1:] == idx[:, :-1]
+        z = torch.gather(depth_mm.reshape(b, -1), 1,
+                         idx).to(torch.float32) * 1e-3
+        sample_idx = idx.to(torch.int32)
+        vids, fx, fy, alpha, valid = geometry(z, sample_idx, pose)
+        valid = valid & ~dup & frame_valid[:, None]
+
+        canvas = canvas_u8.to(torch.float32) * (1.0 / 127.5) - 1.0
+        feats = _canvas_features(lseg_apply, lseg_eval, canvas, fx, fy,
+                                 base_size, crop_size, half_res_apply)
+
+        # colour from the canvas at the scaled source pixel (nearest)
+        cx = torch.clamp(torch.round((idx % w).to(torch.float32) * sx),
+                         0, cw - 1).long()
+        cy = torch.clamp(torch.round((idx // w).to(torch.float32) * sy),
+                         0, ch - 1).long()
+        rgbs = torch.gather(canvas_u8.reshape(b, -1, 3), 1,
+                            (cy * cw + cx)[..., None].expand(-1, -1, 3))
+        d = feats.shape[-1]
+        return fuse_points(
+            state, vids.reshape(-1), feats.reshape(-1, d),
+            rgbs.to(torch.float32).reshape(-1, 3), alpha.reshape(-1),
+            valid.reshape(-1), gs=gs, vh=vh, dedup_scatter=dedup_scatter)
 
     return step
 
@@ -186,8 +329,13 @@ class VLMapBuilder:
 
     ``lseg_apply(images) -> features`` is the pixel-feature network on
     normalised NHWC crops, e.g. ``lambda x: net(x, upsample=False)`` with
-    ``half_res_apply=True``.  Runs on ``device`` (default ``"cuda"``;
-    raises without a card).
+    ``half_res_apply=True``.  ``transport``: ``"canvas"`` or ``"frame"``
+    (None -> the map config's); ``sampling``: ``"host"`` or ``"device"``
+    (device sampling needs the canvas transport; with ``"frame"`` it warns
+    and samples on the host, as the JAX package does).  A matching
+    ``scene.avpack`` (pipeline/packed.py) is read instead of the PNG/npy
+    frames.  Runs on ``device`` (default ``"cuda"``; raises without a
+    card).
     """
 
     def __init__(self, data_dir, map_config, pose_path, rgb_paths,
@@ -204,17 +352,13 @@ class VLMapBuilder:
                 "multi-device (mesh) builds are not ported yet")
         self.transport = transport if transport is not None else \
             getattr(map_config, "transport", "canvas")
-        if self.transport != "canvas":
-            raise NotImplementedError(
-                f"transport={self.transport!r} is not ported yet; the port "
-                "runs the canvas transport")
+        if self.transport not in ("canvas", "frame"):
+            raise ValueError(f"transport={self.transport!r}: use 'canvas' "
+                             "or 'frame'")
         if sampling not in ("host", "device"):
             raise ValueError(f"sampling={sampling!r}: use 'host' or "
                              "'device'")
-        if sampling == "device":
-            raise NotImplementedError(
-                "sampling='device' is not ported yet; the port samples "
-                "pixels on the host")
+        self.sampling = sampling
         self.data_dir = Path(data_dir)
         self.map_config = map_config
         self.pose_path = pose_path
@@ -293,31 +437,70 @@ class VLMapBuilder:
 
         base_size = getattr(cfg, "lseg_base_size", 520)
         crop_size = getattr(cfg, "lseg_crop_size", 480)
-        step = make_frame_step_canvas(
-            self.lseg_apply, gs=gs, cs=cs, vh=vh,
-            calib_mat=cfg.calib_matrix(), image_hw=(h, w),
-            base_size=base_size, crop_size=crop_size,
-            min_depth=cfg.min_depth, max_depth=cfg.max_depth,
-            half_res_apply=self.half_res_apply,
-            lseg_eval=getattr(cfg, "lseg_eval", "sliding"), device=dev)
         height, width, _, _, _ = plan_windows(h, w, base_size, crop_size)
+        use_canvas = self.transport == "canvas"
+        device_sampling = use_canvas and self.sampling == "device"
+        if self.sampling == "device" and not use_canvas:
+            warnings.warn("sampling='device' needs transport='canvas'; "
+                          "using the host sampler", stacklevel=2)
+        common = dict(gs=gs, cs=cs, vh=vh, calib_mat=cfg.calib_matrix(),
+                      image_hw=(h, w), base_size=base_size,
+                      crop_size=crop_size, min_depth=cfg.min_depth,
+                      max_depth=cfg.max_depth,
+                      half_res_apply=self.half_res_apply, device=dev)
+        lseg_eval = getattr(cfg, "lseg_eval", "sliding")
 
         def sampler(b):
             return sample_pixels(self.rng, h, w, cfg.depth_sample_rate,
                                  max_pts, b)
 
+        if device_sampling:
+            from avlmaps_torch.pipeline.transport import \
+                make_raw_canvas_transform
+
+            step = make_frame_step_device_sampled(
+                self.lseg_apply, lseg_eval=lseg_eval, max_pts=max_pts,
+                seed=self.seed, **common)
+            transform = make_raw_canvas_transform((height, width))
+        elif use_canvas:
+            from avlmaps_torch.pipeline.transport import make_canvas_transform
+
+            step = make_frame_step_canvas(self.lseg_apply,
+                                          lseg_eval=lseg_eval, **common)
+            transform = make_canvas_transform(sampler, (height, width))
+        else:
+            step = make_frame_step(self.lseg_apply, rgb_uint8=True, **common)
+            transform = None
+
+        def to_device(a: np.ndarray) -> torch.Tensor:
+            t = torch.from_numpy(a)
+            if dev.type == "cuda":  # pinned: the copy does not block
+                return t.pin_memory().to(dev, non_blocking=True)
+            return t
+
         loader = self._make_loader(scene, pose_tfs, mapped, sampler,
-                                   (height, width))
+                                   (height, width), transform, use_canvas,
+                                   device_sampling)
         done = 0
         meter = RateMeter()
         with torch.no_grad():
             for batch in loader:
                 fv = batch.frame_ids >= 0
-                fv_t = torch.from_numpy(fv)
-                if dev.type == "cuda":  # pinned: the copy does not block
-                    fv_t = fv_t.pin_memory().to(dev, non_blocking=True)
-                state = step(state, batch.canvas, batch.z_mm, batch.rgb_pts,
-                             batch.pose_tf, batch.sample_idx, fv_t)
+                fv_t = to_device(fv)
+                if device_sampling:
+                    state = step(state, batch.canvas, batch.depth_mm,
+                                 batch.pose_tf, to_device(batch.frame_ids),
+                                 fv_t)
+                elif use_canvas:
+                    state = step(state, batch.canvas, batch.z_mm,
+                                 batch.rgb_pts, batch.pose_tf,
+                                 batch.sample_idx, fv_t)
+                else:
+                    idx = sample_pixels(self.rng, h, w,
+                                        cfg.depth_sample_rate, max_pts,
+                                        self.batch_size)
+                    state = step(state, batch.rgb, batch.depth,
+                                 batch.pose_tf, to_device(idx), fv_t)
                 n_new = int(fv.sum())
                 mapped.update(int(i) for i in batch.frame_ids if i >= 0)
                 done += n_new
@@ -346,25 +529,26 @@ class VLMapBuilder:
         return open_matching(self.data_dir, self.rgb_paths, self.depth_paths,
                              explicit_path=self.packed_path)
 
-    def _make_loader(self, scene, pose_tfs, mapped, sampler, canvas_hw):
+    def _make_loader(self, scene, pose_tfs, mapped, sampler, canvas_hw,
+                     transform, use_canvas, raw_canvas):
         """PackedLoader when a matching pack exists (straight from its
-        stored canvas when that has this geometry), else PrefetchLoader
-        decoding PNG/npy; batches land on the device from the producer."""
-        from avlmaps_torch.pipeline.transport import make_canvas_transform
-
-        transform = make_canvas_transform(sampler, canvas_hw)
+        stored canvas when that has this geometry: the raw canvas and
+        depth plane for device sampling, the canvas and host gathers
+        otherwise), else PrefetchLoader decoding PNG/npy; batches land on
+        the device from the producer."""
         if scene is not None:
             from avlmaps_torch.pipeline.packed import PackedLoader
 
-            if (scene.canvas is not None
-                    and tuple(scene.canvas_hw) == tuple(canvas_hw)):
-                return PackedLoader(scene, pose_tfs,
-                                    batch_size=self.batch_size,
-                                    skip_ids=mapped, sampler=sampler,
-                                    device=self.device)
-            return PackedLoader(scene, pose_tfs, batch_size=self.batch_size,
-                                skip_ids=mapped, transform=transform,
-                                device=self.device)
+            kw = dict(batch_size=self.batch_size, skip_ids=mapped,
+                      device=self.device)
+            stored = (use_canvas and scene.canvas is not None
+                      and tuple(scene.canvas_hw) == tuple(canvas_hw))
+            if stored and raw_canvas:
+                return PackedLoader(scene, pose_tfs, raw_canvas=True, **kw)
+            if stored:
+                return PackedLoader(scene, pose_tfs, sampler=sampler, **kw)
+            return PackedLoader(scene, pose_tfs, transform=transform,
+                                depth_metres=use_canvas, **kw)
         from avlmaps_torch.pipeline.loader import PrefetchLoader
 
         return PrefetchLoader(self.rgb_paths, self.depth_paths, pose_tfs,

@@ -1,4 +1,4 @@
-"""The three kernels of a ViT-L block: wrappers, plain versions, counters.
+"""The kernels of a ViT-L block: wrappers, plain versions, counters.
 
 Counterpart of ``avlmaps_tpu/ops/fused_vit.py``.  Each wrapper takes the
 plain PyTorch version for a tensor that lies on the CPU and, for a CUDA
@@ -13,10 +13,21 @@ the ``torch.nn.Linear`` layout ``(out_features, in_features)``.
 - ``ln_matmul`` (K1): ``LayerNorm(x) @ w.T + bias``.  LN statistics in
   f32, normalised rows rounded to the weight dtype, f32 accumulation.
 - ``mha_oneshot_2d`` (K2): 16-head softmax attention read straight from
-  the qkv matrix; keys at or beyond ``t_real`` are masked.
+  the qkv matrix; keys at or beyond ``t_real`` are masked.  ``mha_bhtd``
+  runs the same kernel on (B, H, T, D) tensors, the layout of the JAX
+  package's flash/splash attention (``models/lseg/vit.py``), with no pad.
 - ``ln_mlp_residual`` (K3): ``x + GELU(LN(x) @ w1.T + b1) @ w2.T + b2``
   with exact-erf GELU; the GELU output is rounded to the weight dtype
-  before the second product, as on the TPU.
+  before the second product, as on the TPU.  Weights over 24 MiB take
+  the JAX package's unfused route, ``ln_matmul`` -> ``gelu_matmul`` ->
+  residual add.
+- ``gelu_matmul`` (K6): ``GELU(x) @ w.T + bias``, the GELU of the input
+  rounded to the weight dtype.  It uses exact erf (``erff`` on the card),
+  where the TPU kernel uses a 10-term polynomial with |error| <= 3.4e-5,
+  well inside bf16 resolution.
+
+``MLP_FUSE`` (read at call time, as in the JAX package) routes the ViT
+block's MLP through K3 when True and through K1 + K6 when False.
 """
 
 from __future__ import annotations
@@ -30,11 +41,22 @@ import torch.nn.functional as F
 from avlmaps_torch.kernels import build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I64P = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "avl_ln_matmul": [_P] * 7 + [_I] * 3 + [_F, _P],
     "avl_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_F, _P],
-    "avl_mha": [_P, _P] + [_I] * 4 + [_F, _P],
+    "avl_mha": [_P] * 4 + [_I64P] + [_I] * 4 + [_F, _P],
+    "avl_gelu_matmul": [_P] * 4 + [_I] * 3 + [_P],
 }
+
+# Route the ViT MLP sub-block through ln_mlp_residual (K3) instead of the
+# ln_matmul / gelu_matmul pair; read at call time.
+MLP_FUSE = True
+
+# ln_mlp_residual's weight budget: above it the JAX package's kernel cannot
+# keep both panels resident and takes the unfused route; kept so the same
+# weights take the same route in both packages
+_MLP_FUSE_MAX_BYTES = 24 * 2 ** 20
 
 
 def _lib() -> ctypes.CDLL:
@@ -138,27 +160,54 @@ ln_matmul.launches = 0
 
 # ------------------------------------------------------------------- K2 ---
 
-def mha_oneshot_2d_ref(qkv2d: torch.Tensor, b: int, t: int, n_heads: int, *,
-                       scale: float,
-                       t_real: Optional[int] = None) -> torch.Tensor:
-    """Plain version of :func:`mha_oneshot_2d` (f32 logits and softmax,
+def mha_bhtd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 scale: float, t_real: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`mha_bhtd` (f32 logits and softmax,
     probabilities rounded to the input dtype for the PV product)."""
+    t = q.shape[2]
     if t_real is None:
         t_real = t
-    m, three_w = qkv2d.shape
-    w = three_w // 3
-    hd = w // n_heads
-    qkv = qkv2d.view(b, t, 3, n_heads, hd).permute(2, 0, 3, 1, 4)
-    q = (qkv[0] * scale).float()
-    k, v = qkv[1].float(), qkv[2]
-    logits = q @ k.transpose(-1, -2)  # (b, H, t, t) f32
+    logits = (q * scale).float() @ k.float().transpose(-1, -2)
     if t_real < t:
         logits[..., t_real:] = float("-inf")
     mx = logits.amax(-1, keepdim=True)
     p = torch.exp(logits - mx)
     s = p.sum(-1, keepdim=True)
     pv = p.to(v.dtype).float() @ v.float()
-    out = (pv / s).to(qkv2d.dtype)  # (b, H, t, hd)
+    return (pv / s).to(q.dtype)
+
+
+def _strides(t: torch.Tensor, b: int, h: int, tok: int) -> list:
+    return [t.stride(b), t.stride(h), t.stride(tok)]
+
+
+def _launch_mha(name: str, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, out: torch.Tensor, strides: list, b: int,
+                t: int, n_heads: int, t_real: int, scale: float) -> None:
+    """K2 on operands given by base tensor and (batch, head, token)
+    element strides; the head dim (64) is contiguous."""
+    for i, x in enumerate((q, k, v, out)):
+        _require(x.device == q.device and x.dtype == torch.bfloat16,
+                 f"{name}: kernel takes bf16 on one device")
+        _require(x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+                 and all(st % 8 == 0 for st in strides[3 * i:3 * i + 3]),
+                 f"{name}: kernel needs 16-byte aligned rows of 64 "
+                 "contiguous elements")
+    arr = (ctypes.c_longlong * 12)(*strides)
+    rc = _lib().avl_mha(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), arr, b, t, n_heads, t_real,
+                        float(scale), _stream())
+    _raise_on(rc, name)
+
+
+def mha_oneshot_2d_ref(qkv2d: torch.Tensor, b: int, t: int, n_heads: int, *,
+                       scale: float,
+                       t_real: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`mha_oneshot_2d`."""
+    m, three_w = qkv2d.shape
+    w = three_w // 3
+    qkv = qkv2d.view(b, t, 3, n_heads, w // n_heads).permute(2, 0, 3, 1, 4)
+    out = mha_bhtd_ref(qkv[0], qkv[1], qkv[2], scale=scale, t_real=t_real)
     return out.permute(0, 2, 1, 3).reshape(m, w)
 
 
@@ -177,20 +226,49 @@ def mha_oneshot_2d(qkv2d: torch.Tensor, b: int, t: int, n_heads: int, *,
     _require(qkv2d.is_cuda, f"mha_oneshot_2d: unsupported device "
              f"{qkv2d.device}")
     w = three_w // 3
-    _require(qkv2d.dtype == torch.bfloat16,
-             f"mha_oneshot_2d: kernel takes bf16, got {qkv2d.dtype}")
     _require(w == n_heads * 64, f"mha_oneshot_2d: kernel needs head dim 64, "
              f"got width {w} over {n_heads} heads")
     _check_cuda("mha_oneshot_2d", qkv2d)
     out = torch.empty((m, w), dtype=qkv2d.dtype, device=qkv2d.device)
-    rc = _lib().avl_mha(qkv2d.data_ptr(), out.data_ptr(), b, t, n_heads,
-                        t_real, float(scale), _stream())
-    _raise_on(rc, "mha_oneshot_2d")
+    # q, k and v are column blocks of the qkv matrix: token stride 3W, head
+    # stride 64, batch stride T * 3W
+    q, k, v = (qkv2d[:, i * w:(i + 1) * w] for i in range(3))
+    strides = [t * three_w, 64, three_w] * 3 + [t * w, 64, w]
+    _launch_mha("mha_oneshot_2d", q, k, v, out, strides, b, t, n_heads,
+                t_real, scale)
     mha_oneshot_2d.launches += 1
     return out
 
 
 mha_oneshot_2d.launches = 0
+
+
+def mha_bhtd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             scale: float, t_real: Optional[int] = None) -> torch.Tensor:
+    """Softmax attention on (B, H, T, D) tensors, the layout of the JAX
+    package's ``_flash_attention`` / ``_splash_attention``; returns
+    (B, H, T, D).  Keys at or beyond ``t_real`` are masked, so no pad to a
+    block multiple is needed.  On CUDA: bf16, D = 64, 16-byte aligned
+    rows; any (batch, head, token) strides."""
+    b, h, t, d = q.shape
+    if t_real is None:
+        t_real = t
+    _require(k.shape == q.shape and v.shape == q.shape,
+             "mha_bhtd: q, k, v shapes differ")
+    _require(0 < t_real <= t, f"mha_bhtd: t_real={t_real}, t={t}")
+    if q.device.type == "cpu":
+        return mha_bhtd_ref(q, k, v, scale=scale, t_real=t_real)
+    _require(q.is_cuda, f"mha_bhtd: unsupported device {q.device}")
+    _require(d == 64, f"mha_bhtd: kernel needs head dim 64, got {d}")
+    out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
+    strides = (_strides(q, 0, 1, 2) + _strides(k, 0, 1, 2)
+               + _strides(v, 0, 1, 2) + _strides(out, 0, 1, 2))
+    _launch_mha("mha_bhtd", q, k, v, out, strides, b, t, h, t_real, scale)
+    mha_bhtd.launches += 1
+    return out
+
+
+mha_bhtd.launches = 0
 
 
 # ------------------------------------------------------------------- K3 ---
@@ -216,7 +294,13 @@ def ln_mlp_residual(x2d: torch.Tensor, ln_scale: torch.Tensor,
 
     x2d: (M, K); w1: (N1, K); w2: (K, N1).  On CUDA: bf16, K a multiple of
     256 up to 1024, N1 a multiple of 128; the kernel pair writes the
-    (M, N1) bf16 GELU output to a scratch buffer between its launches."""
+    (M, N1) bf16 GELU output to a scratch buffer between its launches.
+    Weights over 24 MiB take ``ln_matmul`` -> ``gelu_matmul`` -> residual
+    add, each rounded to x's dtype, as the JAX package does."""
+    wbytes = (w1.numel() + w2.numel()) * w1.element_size()
+    if wbytes > _MLP_FUSE_MAX_BYTES:
+        h = ln_matmul(x2d, ln_scale, ln_bias, w1, b1, eps=eps)
+        return x2d + gelu_matmul(h, w2, b2)
     if x2d.device.type == "cpu":
         return ln_mlp_residual_ref(x2d, ln_scale, ln_bias, w1, b1, w2, b2,
                                    eps=eps)
@@ -249,3 +333,46 @@ def ln_mlp_residual(x2d: torch.Tensor, ln_scale: torch.Tensor,
 
 
 ln_mlp_residual.launches = 0
+
+
+# ------------------------------------------------------------------- K6 ---
+
+def gelu_matmul_ref(x2d: torch.Tensor, w: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gelu_matmul`: exact-erf GELU in f32, rounded
+    to the weight dtype, f32 product plus bias, rounded to x's dtype."""
+    g = F.gelu(x2d.float()).to(w.dtype).float()
+    y = g @ w.float().t() + bias.float()
+    return y.to(x2d.dtype)
+
+
+def gelu_matmul(x2d: torch.Tensor, w: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """``GELU(x2d) @ w.T + bias`` without storing the GELU output.
+
+    x2d: (M, K); w: (N, K); bias: (N,).  On CUDA: bf16 x and w, K a
+    multiple of 32, N a multiple of 128."""
+    if x2d.device.type == "cpu":
+        return gelu_matmul_ref(x2d, w, bias)
+    _require(x2d.is_cuda, f"gelu_matmul: unsupported device {x2d.device}")
+    m, k = x2d.shape
+    n = w.shape[0]
+    _require(x2d.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
+             f"gelu_matmul: kernel takes bf16 x and w, got {x2d.dtype}, "
+             f"{w.dtype}")
+    _require(w.shape == (n, k) and bias.shape == (n,),
+             "gelu_matmul: shape mismatch")
+    _require(k % 32 == 0 and n % 128 == 0,
+             f"gelu_matmul: kernel needs K % 32 == 0 and N % 128 == 0, got "
+             f"K={k}, N={n}")
+    bb = _vec_f32(bias)
+    _check_cuda("gelu_matmul", x2d, w, bb)
+    out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
+    rc = _lib().avl_gelu_matmul(x2d.data_ptr(), w.data_ptr(), bb.data_ptr(),
+                                out.data_ptr(), m, n, k, _stream())
+    _raise_on(rc, "gelu_matmul")
+    gelu_matmul.launches += 1
+    return out
+
+
+gelu_matmul.launches = 0

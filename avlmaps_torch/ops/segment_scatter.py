@@ -1,17 +1,31 @@
-"""Sorted segment scatter-add (K4): wrapper, plain version, counter.
+"""Sorted segment scatter-add (K4, K5): wrappers, plain versions, counters.
 
-Counterpart of ``avlmaps_tpu/ops/segment_scatter.py::
-sorted_segment_scatter_add_split``, the accumulate of the voxel fusion.
-For rows sorted by ascending slot,
+Counterpart of ``avlmaps_tpu/ops/segment_scatter.py``, the accumulate of
+the voxel fusion.  For rows sorted by ascending slot,
 
-    accum[slots[k]] += concat(w[k] * float(feats[k]), aux[k])
+    K4 sorted_segment_scatter_add_split:
+        accum[slots[k]] += concat(w[k] * float(feats[k]), aux[k])
+    K5 sorted_segment_scatter_add:
+        accum[slots[k]] += updates[k]
 
 updated IN PLACE (the JAX package donates the buffer to the same effect).
-A tensor on the CPU takes the plain version, ``index_add_`` over the
-assembled update; a CUDA tensor launches the kernel of
-``csrc/segment_scatter.cu`` or raises.  ``b == 0`` is a no-op.  The
-contents of the last row (the fusion's trash slot) are unspecified: the
-plain version adds its rows, the kernel skips them.
+A tensor on the CPU takes the plain version, ``index_add_`` of the
+assembled f32 update; a CUDA tensor launches the kernel of
+``csrc/segment_scatter.cu`` (one template, two payload modes) or raises.
+``b == 0`` is a no-op.  The shape routes are the JAX package's:
+
+- K4 hands a batch it cannot take to K5 with the update assembled (more
+  than ``_SPLIT_MAX_ROWS`` rows, d or W not a multiple of 32, W > 1024,
+  or an accumulator K5 would not take either);
+- K5 discards the trash row's updates when ``S % 8 == 1`` (the fusion's
+  capacity + 1 rows), and for ``S % 8`` not in {0, 1} takes the XLA
+  scatter's counterpart, ``index_add_``, which is no kernel of the TPU
+  either.
+
+Both kernels sum each run of equal slots in row order and add it once, so
+the two give bitwise-equal rows for one batch.  The contents of the trash
+row are unspecified: the plain version adds its rows, the kernels skip
+them.
 """
 
 from __future__ import annotations
@@ -24,12 +38,19 @@ from avlmaps_torch.kernels import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+# The JAX package's route rule (its SMEM prefetch budget), kept so that the
+# same batch takes the same route in both packages.
+_SPLIT_MAX_ROWS = 100_000
+
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("segment_scatter")
     if not getattr(lib, "_avl_bound", False):
         fn = lib.avl_segment_scatter_add_split
         fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]
+        fn.restype = ctypes.c_int
+        fn = lib.avl_segment_scatter_add
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         fn.restype = ctypes.c_int
         lib._avl_bound = True
     return lib
@@ -40,14 +61,81 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _kernel_takes_rows(s: int) -> bool:
+    """The TPU kernels' row rule: whole 8-row windows, plus at most the
+    trash row."""
+    return s % 8 in (0, 1) and s - s % 8 > 0
+
+
+def _check_cuda(name: str, accum: torch.Tensor, slots: torch.Tensor,
+                *rows: torch.Tensor) -> None:
+    _require(accum.is_cuda, f"{name}: unsupported device {accum.device}")
+    _require(accum.dtype == torch.float32 and slots.dtype == torch.int32,
+             f"{name}: accum f32 and slots int32")
+    for t in (accum, slots, *rows):
+        _require(t.device == accum.device and t.is_contiguous(),
+                 f"{name}: inputs must be contiguous and on one device")
+
+
+def _run_starts(slots: torch.Tensor) -> torch.Tensor:
+    """1 where a run of equal slots starts (plain torch, no host sync)."""
+    start = torch.ones(slots.shape[0], dtype=torch.uint8, device=slots.device)
+    start[1:] = slots[1:] != slots[:-1]
+    return start
+
+
+def _skip_slot(s: int) -> int:
+    """The row the kernels leave out: the trash row of a capacity + 1
+    accumulator, else none."""
+    return s - 1 if s % 8 == 1 else -1
+
+
+def _assemble(feats: torch.Tensor, w: torch.Tensor,
+              aux: torch.Tensor) -> torch.Tensor:
+    return torch.cat([w[:, None] * feats.float(), aux.float()], dim=1)
+
+
+# ------------------------------------------------------------------- K4 ---
+
 def sorted_segment_scatter_add_split_ref(accum: torch.Tensor,
                                          slots: torch.Tensor,
                                          feats: torch.Tensor,
                                          w: torch.Tensor,
                                          aux: torch.Tensor) -> torch.Tensor:
     """Plain version: ``index_add_`` of the assembled f32 update."""
-    update = torch.cat([w[:, None] * feats.float(), aux.float()], dim=1)
-    return accum.index_add_(0, slots.long(), update)
+    return accum.index_add_(0, slots.long(), _assemble(feats, w, aux))
+
+
+def split_kernel(accum: torch.Tensor, slots: torch.Tensor,
+                 feats: torch.Tensor, w: torch.Tensor,
+                 aux: torch.Tensor) -> torch.Tensor:
+    """Launch K4's kernel on a CUDA batch, whatever its row count (the
+    wrapper's route rule sends more than ``_SPLIT_MAX_ROWS`` rows to K5);
+    d and W multiples of 32, W <= 1024.  Counted on
+    ``sorted_segment_scatter_add_split.launches``."""
+    name = "sorted_segment_scatter_add_split"
+    b = slots.shape[0]
+    s, wd = accum.shape
+    d = feats.shape[1]
+    _check_cuda(name, accum, slots, feats, w, aux)
+    _require(w.dtype == torch.float32 and aux.dtype == torch.float32,
+             f"{name}: w and aux f32")
+    _require(feats.dtype in (torch.float32, torch.bfloat16),
+             f"{name}: feats {feats.dtype}")
+    _require(feats.shape == (b, d) and w.shape == (b,)
+             and aux.shape == (b, wd - d), f"{name}: shape mismatch")
+    _require(d % 32 == 0 and wd % 32 == 0 and wd <= 1024,
+             f"{name}: the split kernel needs d, W multiples of 32 and "
+             f"W <= 1024, got d={d}, W={wd}")
+    rc = _lib().avl_segment_scatter_add_split(
+        accum.data_ptr(), slots.data_ptr(), _run_starts(slots).data_ptr(),
+        feats.data_ptr(), int(feats.dtype == torch.bfloat16), w.data_ptr(),
+        aux.data_ptr(), b, d, wd, _skip_slot(s),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+    sorted_segment_scatter_add_split.launches += 1
+    return accum
 
 
 def sorted_segment_scatter_add_split(accum: torch.Tensor, slots: torch.Tensor,
@@ -57,47 +145,70 @@ def sorted_segment_scatter_add_split(accum: torch.Tensor, slots: torch.Tensor,
     ascending ``slots``; returns ``accum``.
 
     accum: (S, W) f32; slots: (B,) int32 ascending; feats: (B, d) f32 or
-    bf16; w: (B,) f32; aux: (B, W-d) f32.  The last row, ``S - 1``, holds
-    unspecified contents afterwards.  On CUDA: d and W multiples of 32,
-    W <= 1024."""
+    bf16; w: (B,) f32; aux: (B, W-d) f32.  On CUDA, K4's kernel takes
+    B <= ``_SPLIT_MAX_ROWS``, d and W multiples of 32, W <= 1024 and
+    ``S % 8`` in {0, 1}; any other batch goes to :func:`
+    sorted_segment_scatter_add` with the update assembled, as in the JAX
+    package."""
     b = slots.shape[0]
     if b == 0:
         return accum
     if accum.device.type == "cpu":
         return sorted_segment_scatter_add_split_ref(accum, slots, feats, w,
                                                     aux)
-    _require(accum.is_cuda, f"sorted_segment_scatter_add_split: unsupported "
-             f"device {accum.device}")
     s, wd = accum.shape
     d = feats.shape[1]
-    _require(accum.dtype == torch.float32 and w.dtype == torch.float32
-             and aux.dtype == torch.float32 and slots.dtype == torch.int32,
-             "sorted_segment_scatter_add_split: accum/w/aux f32, slots int32")
-    _require(feats.dtype in (torch.float32, torch.bfloat16),
-             f"sorted_segment_scatter_add_split: feats {feats.dtype}")
-    _require(feats.shape == (b, d) and w.shape == (b,)
-             and aux.shape == (b, wd - d),
-             "sorted_segment_scatter_add_split: shape mismatch")
-    _require(d % 32 == 0 and wd % 32 == 0 and wd <= 1024,
-             f"sorted_segment_scatter_add_split: kernel needs d, W multiples "
-             f"of 32 and W <= 1024, got d={d}, W={wd}")
-    for t in (accum, slots, feats, w, aux):
-        _require(t.device == accum.device and t.is_contiguous(),
-                 "sorted_segment_scatter_add_split: inputs must be "
-                 "contiguous and on one device")
-    # run starts (plain torch, no host sync): one warp sums each run
-    start = torch.ones(b, dtype=torch.uint8, device=accum.device)
-    start[1:] = slots[1:] != slots[:-1]
-    rc = _lib().avl_segment_scatter_add_split(
-        accum.data_ptr(), slots.data_ptr(), start.data_ptr(),
-        feats.data_ptr(), int(feats.dtype == torch.bfloat16), w.data_ptr(),
-        aux.data_ptr(), b, d, wd, s - 1,
-        torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError("sorted_segment_scatter_add_split: CUDA launch "
-                           f"failed with cudaError {rc}")
-    sorted_segment_scatter_add_split.launches += 1
-    return accum
+    if not (_kernel_takes_rows(s) and b <= _SPLIT_MAX_ROWS and d % 32 == 0
+            and wd % 32 == 0 and wd <= 1024 and aux.shape[1] == wd - d):
+        return sorted_segment_scatter_add(accum, slots,
+                                          _assemble(feats, w, aux))
+    return split_kernel(accum, slots, feats, w, aux)
 
 
 sorted_segment_scatter_add_split.launches = 0
+
+
+# ------------------------------------------------------------------- K5 ---
+
+def sorted_segment_scatter_add_ref(accum: torch.Tensor, slots: torch.Tensor,
+                                   updates: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``index_add_`` of the f32 updates."""
+    return accum.index_add_(0, slots.long(), updates.float())
+
+
+def sorted_segment_scatter_add(accum: torch.Tensor, slots: torch.Tensor,
+                               updates: torch.Tensor, *,
+                               rle: bool = True) -> torch.Tensor:
+    """``accum[slots[k]] += updates[k]`` in place for ascending ``slots``;
+    returns ``accum``.
+
+    accum: (S, W) f32; slots: (B,) int32 ascending; updates: (B, W) f32.
+    ``rle`` is accepted for the JAX signature and changes nothing: its two
+    TPU kernels are bitwise equal, and one in-order sum per run gives the
+    same by construction.  On CUDA, ``S % 8 == 1`` discards the trash
+    row's updates; ``S % 8`` not in {0, 1} takes ``index_add_``."""
+    del rle
+    b = slots.shape[0]
+    if b == 0:
+        return accum
+    if accum.device.type == "cpu":
+        return sorted_segment_scatter_add_ref(accum, slots, updates)
+    name = "sorted_segment_scatter_add"
+    s, wd = accum.shape
+    _check_cuda(name, accum, slots)
+    if not _kernel_takes_rows(s):
+        return accum.index_add_(0, slots.long(), updates.float())
+    updates = updates.float().contiguous()
+    _check_cuda(name, accum, slots, updates)
+    _require(updates.shape == (b, wd), f"{name}: shape mismatch")
+    rc = _lib().avl_segment_scatter_add(
+        accum.data_ptr(), slots.data_ptr(), _run_starts(slots).data_ptr(),
+        updates.data_ptr(), b, wd, _skip_slot(s),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+    sorted_segment_scatter_add.launches += 1
+    return accum
+
+
+sorted_segment_scatter_add.launches = 0

@@ -12,9 +12,10 @@ unspecified.
 Where the JAX package donates the state buffers to a jitted update, the
 port updates ``occupied_flat`` and ``accum`` IN PLACE: a
 :class:`VoxelFusionState` passed to :func:`fuse_points` is mutated and
-returned.  On CUDA the accumulate always goes through the K4 kernel
-(ops/segment_scatter.py); on the CPU through its plain ``index_add_``
-version.  No step waits on the device: counters stay 0-d tensors.
+returned.  On CUDA the accumulate goes through the K4 or K5 kernel
+(ops/segment_scatter.py), by the JAX package's routes; on the CPU
+through their plain ``index_add_`` versions.  No step waits on the
+device: counters stay 0-d tensors.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from avlmaps_torch.ops.segment_scatter import sorted_segment_scatter_add_split
+from avlmaps_torch.ops.segment_scatter import (
+    sorted_segment_scatter_add, sorted_segment_scatter_add_split)
 from avlmaps_torch.utils.device import resolve_device
 
 INT32_MAX = int(np.iinfo(np.int32).max)
@@ -96,18 +98,24 @@ def concept_fusion_alpha(points_local: torch.Tensor,
     return torch.exp(-radial_dist_sq / (2.0 * sigma_sq))
 
 
-def fuse_points(state: VoxelFusionState, vids: torch.Tensor,
-                feats: torch.Tensor, rgbs: torch.Tensor, alphas: torch.Tensor,
-                valid: torch.Tensor, *, gs: int,
-                vh: int) -> VoxelFusionState:
-    """Fuse one batch of weighted point features into the accumulators.
+@dataclass
+class SortedBatch:
+    """One fusion batch in the accumulate's sorted order (see
+    :func:`sort_batch`)."""
 
-    vids: (B,) int32 flat voxel ids; feats: (B, D) f32 or bf16; rgbs:
-    (B, 3) f32; alphas: (B,) f32; valid: (B,) bool.  Per valid point with
-    weight α: allocate ``occupied[vid]`` if empty, then
-    ``sum_wfeat += α·feat``, ``sum_wrgb += α·rgb``, ``sum_w += α``.
-    Mutates and returns ``state``.
-    """
+    slots: torch.Tensor  # (B,) int32 ascending final slots
+    feats: torch.Tensor  # (B, D) features in slot order
+    w: torch.Tensor  # (B,) f32 weights, 0 for invalid points
+    aux: torch.Tensor  # (B, ACCUM_PAD) f32 [w·rgb | w | (row, col, h) | 0]
+    n_unique: torch.Tensor  # () int32 first-seen voxels of the batch
+    n_dropped: torch.Tensor  # () int32 points lost to capacity overflow
+
+
+def sort_batch(state: VoxelFusionState, vids: torch.Tensor,
+               feats: torch.Tensor, rgbs: torch.Tensor, alphas: torch.Tensor,
+               valid: torch.Tensor, *, gs: int, vh: int) -> SortedBatch:
+    """Allocate the batch's new slots in ``state.occupied_flat`` (in place)
+    and return its rows sorted by final slot, ready for the accumulate."""
     capacity = state.accum.shape[0] - 1
     b = vids.shape[0]
     n_vox = gs * gs * vh
@@ -162,12 +170,52 @@ def fuse_points(state: VoxelFusionState, vids: torch.Tensor,
         torch.zeros((b, ACCUM_PAD - 7), dtype=torch.float32,
                     device=w.device),
     ], dim=1)
-    sorted_segment_scatter_add_split(state.accum, slot_s,
-                                     feats[perm].contiguous(), w, aux)
+    return SortedBatch(
+        slots=slot_s, feats=feats[perm].contiguous(), w=w, aux=aux,
+        n_unique=n_unique,
+        n_dropped=torch.sum((sk < INT32_MAX) & (slot_s == capacity),
+                            dtype=torch.int32))
 
-    state.n_slots = torch.clamp(state.n_slots + n_unique, max=capacity)
-    state.n_dropped = state.n_dropped + torch.sum(
-        (sk < INT32_MAX) & (slot_s == capacity), dtype=torch.int32)
+
+def fuse_points(state: VoxelFusionState, vids: torch.Tensor,
+                feats: torch.Tensor, rgbs: torch.Tensor, alphas: torch.Tensor,
+                valid: torch.Tensor, *, gs: int, vh: int,
+                dedup_scatter: Optional[bool] = None,
+                scatter_rle: bool = True,
+                scatter_split: bool = True) -> VoxelFusionState:
+    """Fuse one batch of weighted point features into the accumulators.
+
+    vids: (B,) int32 flat voxel ids; feats: (B, D) f32 or bf16; rgbs:
+    (B, 3) f32; alphas: (B,) f32; valid: (B,) bool.  Per valid point with
+    weight α: allocate ``occupied[vid]`` if empty, then
+    ``sum_wfeat += α·feat``, ``sum_wrgb += α·rgb``, ``sum_w += α``.
+    Mutates and returns ``state``.
+
+    The accumulate takes the JAX package's routes: ``dedup_scatter`` with
+    ``scatter_split`` -> K4 (which hands batches it cannot take to K5);
+    ``dedup_scatter`` alone -> the assembled update through K5; no dedup ->
+    ``index_add_``, the counterpart of the JAX package's XLA scatter.
+    ``dedup_scatter=None`` means on for a CUDA state, as the JAX default is
+    on its accelerator.  The TPU grid's ``scatter_block_rows`` has no
+    counterpart.
+    """
+    if dedup_scatter is None:
+        dedup_scatter = state.accum.is_cuda
+    sb = sort_batch(state, vids, feats, rgbs, alphas, valid, gs=gs, vh=vh)
+    if dedup_scatter and scatter_split:
+        sorted_segment_scatter_add_split(state.accum, sb.slots, sb.feats,
+                                         sb.w, sb.aux)
+    else:
+        update = torch.cat([sb.w[:, None] * sb.feats.float(), sb.aux], dim=1)
+        if dedup_scatter:
+            sorted_segment_scatter_add(state.accum, sb.slots, update,
+                                       rle=scatter_rle)
+        else:
+            state.accum.index_add_(0, sb.slots.long(), update)
+
+    capacity = state.accum.shape[0] - 1
+    state.n_slots = torch.clamp(state.n_slots + sb.n_unique, max=capacity)
+    state.n_dropped = state.n_dropped + sb.n_dropped
     return state
 
 

@@ -51,20 +51,24 @@ def load_depth(path) -> np.ndarray:
 
 
 def batch_to_device(batch, device: torch.device):
-    """A copy of a Frame/CanvasBatch whose payload arrays are tensors on
-    ``device``; ``frame_ids`` stays host numpy for the control loop.
-    uint16 arrays travel as int32 (torch has no general uint16 kernels)."""
+    """A copy of a Frame/Canvas/RawCanvasBatch whose payload arrays are
+    tensors on ``device``; ``frame_ids`` stays host numpy for the control
+    loop.  uint16 arrays cross as their int16 bit pattern and are widened
+    to int32 on the device (torch has no general uint16 kernels)."""
     moved = {}
     for f in dataclasses.fields(batch):
         v = getattr(batch, f.name)
         if f.name == "frame_ids" or not isinstance(v, np.ndarray):
             continue
-        if v.dtype == np.uint16:
-            v = v.astype(np.int32)
-        t = torch.from_numpy(np.ascontiguousarray(v))
+        u16 = v.dtype == np.uint16
+        t = torch.from_numpy(np.ascontiguousarray(v.view(np.int16) if u16
+                                                  else v))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
-        moved[f.name] = t.to(device)
+        t = t.to(device)
+        if u16:
+            t = t.to(torch.int32) & 0xFFFF
+        moved[f.name] = t
     return dataclasses.replace(batch, **moved)
 
 

@@ -1,13 +1,15 @@
-"""Canvas transport: ship only what the device step reads.
+"""Canvas transports: ship only what the device step reads.
 
 Counterpart of the canvas half of ``avlmaps_tpu/pipeline/transport.py``.
 The map-building step reads (a) the base_size-resized canvas the
 sliding-window LSeg runs on, (b) depth at the ~h*w/100 sampled pixels and
-(c) the colour at those pixels, so a batch carries the align-corners
-resized canvas as uint8, the sampled depth as uint16 millimetres, the
-sampled colour as uint8 and the sample indices -- ~6.4x fewer bytes than
-uint8 RGB plus uint16 depth frames.  Depth and colour values are the
-frames' own; the canvas is re-quantised to uint8 after the resize.
+(c) the colour at those pixels, so a :class:`CanvasBatch` carries the
+align-corners resized canvas as uint8, the sampled depth as uint16
+millimetres, the sampled colour as uint8 and the sample indices -- ~6.4x
+fewer bytes than uint8 RGB plus uint16 depth frames.  Depth and colour
+values are the frames' own; the canvas is re-quantised to uint8 after the
+resize.  A :class:`RawCanvasBatch` carries the canvas and the full-res
+uint16 depth plane instead, for the step that samples on the device.
 """
 
 from __future__ import annotations
@@ -110,6 +112,36 @@ def make_canvas_transform(sampler: Callable[[int], np.ndarray],
             z_mm=z_mm,
             rgb_pts=rgb_pts.astype(np.uint8),
             sample_idx=idx.astype(np.int32),
+            pose_tf=batch.pose_tf,
+        )
+
+    return transform
+
+
+@dataclass
+class RawCanvasBatch:
+    """The device-sampling transport (pairs with vlmap_builder.
+    make_frame_step_device_sampled): the resized canvas plus the full-res
+    uint16-mm depth plane, with no host-side sampling or per-point gathers;
+    from a packed scene it is a pure memmap copy."""
+
+    frame_ids: np.ndarray  # (B,) int32, -1 for padding frames
+    canvas: np.ndarray  # (B, ch, cw, 3) uint8 resized RGB
+    depth_mm: np.ndarray  # (B, H, W) uint16 full-res depth, millimetres
+    pose_tf: np.ndarray  # (B, 4, 4) float32
+
+
+def make_raw_canvas_transform(canvas_hw: Tuple[int, int]) -> Callable:
+    """Loader ``transform`` for the device-sampling step: resize the canvas,
+    quantise depth to uint16 mm, ship both (no sampling)."""
+    ch, cw = canvas_hw
+
+    def transform(batch) -> RawCanvasBatch:
+        return RawCanvasBatch(
+            frame_ids=batch.frame_ids,
+            canvas=resize_canvas_u8(batch.rgb, ch, cw),
+            depth_mm=np.clip(batch.depth * 1000.0, 0,
+                             65535).astype(np.uint16),
             pose_tf=batch.pose_tf,
         )
 

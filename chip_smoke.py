@@ -34,7 +34,21 @@
    ``init_categories`` with K8 once, ``make_serving_query``, ``get_pos``)
    on the map slice 1 built.  Counts are zeroed before each slice's path
    and read after it.
-5. Prints the kernel table as one JSON line, then the card line, and last
+5. Slice 3, the throughput build and the other routes: K6
+   (``gelu_matmul``) and K2 on (B, H, T, D) tensors (``mha_bhtd``, the
+   flash/splash row) against their plain versions at the ViT-L shapes; a
+   64-frame 720x1080 scene packed with ``pack_scene`` (canvas 347x520)
+   and built with ``sampling="device"``, whole-canvas eval, batch 16 (K5
+   once a step, K4 never; frames/s, host and device ms per step, idle
+   share; a warm step under ``set_sync_debug_mode("error")``); the same
+   frames through the canvas transport (host sampling, whole, batch 16);
+   the frame transport (sliding, batch 4, 2 steps) against the canvas
+   transport on the same frames and draws; K5 against its plain version
+   and bitwise against K4 on a real 124,416-row sorted batch of the build;
+   8-crop ViT-L taps with ``MLP_FUSE=False`` and ``attn_impl="flash"``
+   against the default route; a medium f32 LSeg on the card against the
+   CPU.
+6. Prints the kernel table as one JSON line, then the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no result line.
@@ -93,6 +107,12 @@ MP3D = ["void", "wall", "floor", "chair", "door", "table", "picture",
 STAGES = ["query.text_encode", "query.score_argmax", "query.scatter_min",
           "query.edt_axis0", "query.edt_axis1", "query.edt_axis2",
           "query.gather_heat", "query.delivery", "query.topk"]
+
+# the throughput build (bench.py's whole-canvas legs): batch 16, 64 frames
+THR_BATCH = 16
+THR_FRAMES = 64
+THR_POINTS = THR_BATCH * POINTS  # 124,416 rows per step, past K4's budget
+FRAME_FRAMES = 8  # the frame-transport check: 2 steps of 4
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores
@@ -437,7 +457,7 @@ def write_scene(root: Path, n: int, seed: int, h: int = 720,
 
 
 PORT_KERNELS = ("gemm_kernel", "ln_stats_kernel", "mha_kernel",
-                "segment_scatter_split_kernel")
+                "segment_scatter_kernel")
 
 
 def profile_build(b, steps: int) -> float:
@@ -474,8 +494,6 @@ def time_producer(scene: Path, mc, n_frames: int) -> float:
     """The host producer alone, ms per batch: PNG and npy decode, canvas
     resize, pixel sampling and the pinned copy to the card, with no step
     consuming the batches."""
-    import torch
-
     from avlmaps_torch.map.vlmap_builder import sample_pixels
     from avlmaps_torch.models.lseg.window import plan_windows
     from avlmaps_torch.pipeline.loader import PrefetchLoader
@@ -488,20 +506,27 @@ def time_producer(scene: Path, mc, n_frames: int) -> float:
     transform = make_canvas_transform(
         lambda nb: sample_pixels(rng, h, w, mc.depth_sample_rate, n_pts, nb),
         (height, width))
-    loader = PrefetchLoader(
+    return producer_ms(PrefetchLoader(
         sorted((scene / "rgb").glob("*.png")),
         sorted((scene / "depth").glob("*.npy")),
         [np.eye(4)] * n_frames, batch_size=BATCH, normalize=False,
-        transform=transform, device="cuda")
+        transform=transform, device="cuda"))
+
+
+def producer_ms(loader) -> float:
+    """A loader's ms per batch with no step consuming the batches."""
+    import torch
+
     t0 = time.perf_counter()
     n_batches = sum(1 for _ in loader)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / n_batches
 
 
-def slice_run(rows, tmp: Path) -> Path:
+def slice_run(rows, tmp: Path):
     """The map build at full width, with launch counts and output checks;
-    returns the scene directory, whose ``vlmap/vlmaps.h5df`` holds the map."""
+    returns the scene directory, whose ``vlmap/vlmaps.h5df`` holds the map,
+    and the network."""
     import torch
 
     from avlmaps_torch.config import load_config
@@ -614,7 +639,435 @@ def slice_run(rows, tmp: Path) -> Path:
     # 24 bf16 blocks whose sums run in another order on each side
     if float(cos.min()) < 0.999:
         raise AssertionError("card features disagree with the CPU path")
-    return scene
+    del cpu_net
+    return scene, net
+
+
+def vit_kernel_checks():
+    """K6 and K2 on (B, H, T, D) tensors at the ViT-L shapes against their
+    plain versions, with times."""
+    import torch
+    import torch.nn.functional as F
+
+    from avlmaps_torch.ops import fused_vit as fv
+
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    bf_atol, bf_rtol = 1e-2, 2.0 ** -6
+    m = BATCH * CROPS * T
+    rows = []
+    # K6: GELU(fc output) -> proj, the unfused MLP's second product
+    x = randn(m, MLP)
+    w = randn(WIDTH, MLP, std=MLP ** -0.5)
+    b = randn(WIDTH, std=0.1, dtype=torch.float32)
+    k6 = lambda: fv.gelu_matmul(x, w, b)  # noqa: E731
+    p6 = lambda: fv.gelu_matmul_ref(x, w, b)  # noqa: E731
+    lib6 = lambda: F.linear(F.gelu(x), w, b.to(x.dtype))  # noqa: E731
+    err = compare("K6 gelu_matmul", k6(), p6(), bf_atol, bf_rtol)
+    b_ms, b_by = bound(2 * m * MLP * WIDTH,
+                       2 * (m * MLP + WIDTH * MLP + m * WIDTH) + 4 * WIDTH,
+                       PEAK_BF16)
+    rows.append(dict(name="gelu_matmul", fn=fv.gelu_matmul, route="cuda",
+                     source="avlmaps_torch/csrc/fused_vit.cu",
+                     replaces="avlmaps_tpu/ops/fused_vit.py:459",
+                     max_abs_err=err, ms=time_ms(k6), plain_ms=time_ms(p6, 3),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib6)))
+    del x
+
+    # K2 on (B, H, T, D): the flash/splash layout, 8 crops x 16 heads
+    nb, hd = BATCH * CROPS, WIDTH // HEADS
+    q, k, v = (randn(nb, HEADS, T, hd) for _ in range(3))
+    scale = 1.0 / math.sqrt(hd)
+    k2 = lambda: fv.mha_bhtd(q, k, v, scale=scale)  # noqa: E731
+    p2 = lambda: fv.mha_bhtd_ref(q, k, v, scale=scale)  # noqa: E731
+    lib2 = lambda: F.scaled_dot_product_attention(q, k, v,  # noqa: E731
+                                                  scale=scale)
+    # the K2 check's floor: outputs average ~900 unit-variance values
+    err = compare("K2 mha_bhtd (B, H, T, D)", k2(), p2(), 4e-3, bf_rtol)
+    qkv = randn(nb, T, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
+    compare("K2 mha_bhtd on strided head-split views",
+            fv.mha_bhtd(qkv[0], qkv[1], qkv[2], scale=scale, t_real=832),
+            fv.mha_bhtd_ref(qkv[0], qkv[1], qkv[2], scale=scale,
+                            t_real=832), 4e-3, bf_rtol)
+    b_ms, b_by = bound(4 * nb * HEADS * T * T * hd,
+                       2 * 4 * nb * HEADS * T * hd, PEAK_BF16)
+    rows.append(dict(name="mha_bhtd", fn=fv.mha_bhtd, route="cuda",
+                     source="avlmaps_torch/csrc/fused_vit.cu",
+                     replaces="avlmaps_tpu/models/lseg/vit.py:81",
+                     max_abs_err=err, ms=time_ms(k2), plain_ms=time_ms(p2, 3),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib2)))
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def _map_setup():
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.geometry.transforms import (build_base2cam_tf,
+                                                   build_base_transform)
+
+    mc = load_config().map_config
+    pi = mc.pose_info
+    return mc, (build_base2cam_tf(pi.base2cam_rot, pi.camera_height),
+                build_base_transform(pi.base_forward_axis, pi.base_left_axis,
+                                     pi.base_up_axis))
+
+
+def _frames(scene: Path):
+    return (sorted((scene / "rgb").glob("*.png")),
+            sorted((scene / "depth").glob("*.npy")))
+
+
+def _builder(net, mc, tfs, scene: Path, batch: int, **kw):
+    from avlmaps_torch.map.vlmap_builder import VLMapBuilder
+
+    saved = scene / "vlmap" / "vlmaps.h5df"
+    if saved.exists():  # a fresh build, not a resume
+        saved.unlink()
+    return VLMapBuilder(scene, mc, scene / "poses.txt", *_frames(scene),
+                        *tfs, lseg_apply=lambda x: net(x, upsample=False),
+                        feat_dim=FEAT, batch_size=batch, seed=0,
+                        half_res_apply=True, device="cuda", **kw)
+
+
+def _zero(rows):
+    for r in rows:
+        r["fn"].launches = 0
+
+
+def _counts(rows):
+    return {r["name"]: r["fn"].launches for r in rows}
+
+
+def _measured_build(name, make, rows, steps, producer_loader):
+    """One timed build (after a warm one), its launch counts, a profile of
+    a second build and the producer alone; prints the step numbers."""
+    import torch
+
+    _zero(rows)
+    b = make()
+    # the steps end where the final save starts: the builder's loop runs
+    # ahead of the card, so its own rate meter times the enqueue
+    save, loop_end = b._save, []
+
+    def timed_save(*args):
+        torch.cuda.synchronize()
+        loop_end.append(time.perf_counter())
+        return save(*args)
+
+    b._save = timed_save
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = b.create_mobile_base_map(save_every=0, progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(rows)
+    stats = b.build_stats
+    device_ms = profile_build(make(), steps)
+    producer = producer_ms(producer_loader())
+    step_ms = (loop_end[-1] - t0) * 1e3 / steps
+    enqueue_ms = 1e3 * THR_BATCH / stats["fps"]
+    print(f"  {name}: frames={stats['frames']} voxels={stats['voxels']} "
+          f"steps={steps}; {1e3 * THR_BATCH / step_ms:.2f} frames/s, "
+          f"{step_ms:.1f} ms per step (host clock to the last step's end, "
+          f"set-up included); device busy {device_ms:.1f} ms per step "
+          f"(profiled rebuild), idle share {1 - device_ms / step_ms:.3f}; "
+          f"the loop enqueues a step in {enqueue_ms:.1f} ms (RateMeter); "
+          f"producer alone {producer:.1f} ms per batch of {THR_BATCH}; "
+          f"whole build {wall:.2f} s with export and save")
+    print(f"  {name} launches: {counts}")
+    if stats["frames"] != THR_FRAMES or m.grid_feat.shape[0] == 0 \
+            or not np.isfinite(m.grid_feat).all():
+        raise AssertionError(f"{name}: build stats {stats}")
+    return m, counts
+
+
+def throughput_run(net, tmp: Path, k5_row, path_rows):
+    """The throughput build: a packed 64-frame scene, device sampling,
+    whole-canvas eval, batch 16 (K5 once a step, K4 never), then the same
+    frames through the canvas transport.  Returns the fusion inputs of one
+    real batch-16 step (captured during the warm-up build)."""
+    import torch
+
+    from avlmaps_torch.map import vlmap_builder as vb
+    from avlmaps_torch.models.lseg.window import plan_windows
+    from avlmaps_torch.ops.voxel_fusion import init_fusion_state
+    from avlmaps_torch.pipeline.packed import (PackedLoader, PackedScene,
+                                               pack_scene)
+
+    mc, tfs = _map_setup()
+    mc.lseg_eval = "whole"
+    canvas_hw = plan_windows(720, 1080)[:2]
+    t0 = time.perf_counter()
+    warm = write_scene(tmp / "thr_warm", THR_BATCH, seed=3)
+    scene = write_scene(tmp / "thr", THR_FRAMES, seed=4)
+    for sc in (warm, scene):
+        pack_scene(*_frames(sc), sc / "scene.avpack", canvas_hw=canvas_hw)
+    print(f"  64 + 16 frames written and packed (canvas {canvas_hw}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # warm-up build of one step, capturing its fusion inputs
+    captured = []
+    fuse = vb.fuse_points
+
+    def capture(state, *args, **kw):
+        if not captured:
+            captured.extend(a.clone() for a in args)
+        return fuse(state, *args, **kw)
+
+    vb.fuse_points = capture
+    try:
+        _builder(net, mc, tfs, warm, THR_BATCH,
+                 sampling="device").create_mobile_base_map(
+            save_every=0, progress=False)
+    finally:
+        vb.fuse_points = fuse
+    if captured[0].shape != (THR_POINTS,):
+        raise AssertionError(f"captured batch {captured[0].shape}")
+
+    # a warm device-sampled step makes no host synchronisation
+    step = vb.make_frame_step_device_sampled(
+        lambda x: net(x, upsample=False), gs=mc.gs, cs=mc.cs, vh=mc.vh,
+        calib_mat=mc.calib_matrix(), image_hw=(720, 1080),
+        max_pts=mc.point_budget(720, 1080), seed=0, device="cuda")
+    batch = list(PackedLoader(PackedScene(warm / "scene.avpack"),
+                              [np.eye(4)] * THR_BATCH, batch_size=THR_BATCH,
+                              raw_canvas=True, device="cuda"))[0]
+    state = init_fusion_state(mc.gs, mc.vh, FEAT, mc.capacity,
+                              device="cuda")
+    fids = torch.from_numpy(batch.frame_ids).cuda()
+    valid = torch.ones(THR_BATCH, dtype=torch.bool, device="cuda")
+    with torch.no_grad():
+        step(state, batch.canvas, batch.depth_mm, batch.pose_tf, fids, valid)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(state, batch.canvas, batch.depth_mm, batch.pose_tf, fids,
+                 valid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("  pass: a warm device-sampled batch-16 step ran under "
+          "set_sync_debug_mode('error')")
+    del state, batch, step
+
+    steps = THR_FRAMES // THR_BATCH
+    rows = path_rows + [k5_row]
+    pk = PackedScene(scene / "scene.avpack")
+    poses = [np.eye(4)] * THR_FRAMES
+    _, counts = _measured_build(
+        "device-sampled packed build (whole, batch 16)",
+        lambda: _builder(net, mc, tfs, scene, THR_BATCH, sampling="device"),
+        rows, steps,
+        lambda: PackedLoader(pk, poses, batch_size=THR_BATCH,
+                             raw_canvas=True, device="cuda"))
+    k5_row["launches"] = counts["sorted_segment_scatter_add"]
+    want = {"ln_matmul": LAYERS * steps, "mha_oneshot_2d": LAYERS * steps,
+            "ln_mlp_residual": LAYERS * steps,
+            "sorted_segment_scatter_add_split": 0,
+            "sorted_segment_scatter_add": steps}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+
+    rng = np.random.default_rng(0)
+    n_pts = mc.point_budget(720, 1080)
+    _, counts = _measured_build(
+        "canvas transport on the same frames (host sampling, whole, "
+        "batch 16)",
+        lambda: _builder(net, mc, tfs, scene, THR_BATCH),
+        rows, steps,
+        lambda: PackedLoader(pk, poses, batch_size=THR_BATCH,
+                             sampler=lambda nb: vb.sample_pixels(
+                                 rng, 720, 1080, mc.depth_sample_rate,
+                                 n_pts, nb), device="cuda"))
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    return captured
+
+
+def k5_check(captured, k5_row):
+    """K5 on a real sorted batch-16 step against its plain version, and
+    bitwise against K4's kernel on the same batch."""
+    import torch
+
+    from avlmaps_torch.ops import segment_scatter as ss
+    from avlmaps_torch.ops import voxel_fusion as vf
+
+    mc, _ = _map_setup()
+    state = vf.init_fusion_state(mc.gs, mc.vh, FEAT, CAPACITY, device="cuda")
+    sb = vf.sort_batch(state, *captured, gs=mc.gs, vh=mc.vh)
+    update = torch.cat([sb.w[:, None] * sb.feats.float(), sb.aux], dim=1)
+    base = torch.zeros(CAPACITY + 1, ACCUM_W, device="cuda")
+    got = _uncounted(ss.sorted_segment_scatter_add, base.clone(), sb.slots,
+                     update)
+    want = ss.sorted_segment_scatter_add_ref(base.clone(), sb.slots, update)
+    err = compare("K5 sorted_segment_scatter_add (124,416 rows)",
+                  got[:CAPACITY], want[:CAPACITY], 1e-4, 1e-5)
+    del want
+    k4 = ss.sorted_segment_scatter_add_split
+    before = k4.launches  # a check's launch, not the main path's
+    split = ss.split_kernel(base.clone(), sb.slots, sb.feats, sb.w, sb.aux)
+    k4.launches = before
+    same = torch.equal(got[:CAPACITY], split[:CAPACITY])
+    print(f"  {'pass' if same else 'FAIL'}: K5 == K4 bitwise on rows "
+          f"[0, {CAPACITY}) of the same batch")
+    if not same:
+        raise AssertionError("K5 and K4 disagree on one batch")
+    del got, split
+    real = sb.slots[sb.slots != CAPACITY]
+    n_rows, n_unique = int(real.numel()), int(torch.unique(real).numel())
+    print(f"  real batch: {THR_POINTS} rows, {n_rows} bound for {n_unique} "
+          "voxels, the rest in the trash run")
+    acc = base
+    b_ms, b_by = bound(n_rows * ACCUM_W,
+                       n_rows * (4 * ACCUM_W + 4) + n_unique * ACCUM_W * 8,
+                       PEAK_F32)
+    before = ss.sorted_segment_scatter_add.launches
+    k5 = lambda: ss.sorted_segment_scatter_add(acc, sb.slots,  # noqa: E731
+                                               update)
+    p5 = lambda: ss.sorted_segment_scatter_add_ref(acc, sb.slots,  # noqa: E731
+                                                   update)
+    lib5 = lambda: acc.index_add_(0, sb.slots.long(), update)  # noqa: E731
+    k5_row.update(max_abs_err=err, ms=time_ms(k5), plain_ms=time_ms(p5),
+                  bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib5))
+    ss.sorted_segment_scatter_add.launches = before
+    print(f"  sorted_segment_scatter_add: kernel {k5_row['ms']:.4f} ms, plain "
+          f"{k5_row['plain_ms']:.4f} ms, library {k5_row['library_ms']:.4f} "
+          f"ms, bound {k5_row['bound_ms']:.4f} ms ({k5_row['bound_by']})")
+    del acc, base, update
+    torch.cuda.empty_cache()
+
+
+def frame_transport_run(net, tmp: Path, k4_row):
+    """The frame transport (sliding, batch 4) against the canvas transport
+    on the same frames and the same host draws, with the tolerances of
+    tests/test_canvas_transport.py for a resized canvas.  Both read one
+    pack, so both see the same uint16-mm depth (the canvas transport ships
+    depth in millimetres; the npy frames hold metres)."""
+    from avlmaps_torch.models.lseg.window import plan_windows
+    from avlmaps_torch.pipeline.packed import pack_scene
+
+    mc, tfs = _map_setup()
+    mc.lseg_eval = "sliding"
+    scene = write_scene(tmp / "frame", FRAME_FRAMES, seed=5)
+    pack_scene(*_frames(scene), scene / "scene.avpack",
+               canvas_hw=plan_windows(720, 1080)[:2])
+    maps = {}
+    for transport in ("frame", "canvas"):
+        k4_row["fn"].launches = 0
+        b = _builder(net, mc, tfs, scene, BATCH, transport=transport)
+        maps[transport] = b.create_mobile_base_map(save_every=0,
+                                                   progress=False)
+        print(f"  {transport} transport: {b.build_stats['fps']:.2f} "
+              f"frames/s over {FRAME_FRAMES // BATCH} steps, K4 launches "
+              f"{k4_row['fn'].launches}")
+        if k4_row["fn"].launches != FRAME_FRAMES // BATCH:
+            raise AssertionError("K4 did not run once a step")
+    f, c = maps["frame"], maps["canvas"]
+    denom = np.maximum(np.abs(f.grid_feat), 1e-3)
+    med = float(np.median(np.abs(c.grid_feat - f.grid_feat) / denom))
+    checks = {
+        "grid_pos equal": np.array_equal(f.grid_pos, c.grid_pos),
+        "occupied_ids equal": np.array_equal(f.occupied_ids,
+                                             c.occupied_ids),
+        "weight within rtol 1e-6": np.allclose(f.weight, c.weight,
+                                               rtol=1e-6, atol=0),
+        "grid_rgb within 1": int(np.abs(f.grid_rgb.astype(int)
+                                        - c.grid_rgb).max()) <= 1,
+        "median relative feature difference < 0.05": med < 0.05,
+    }
+    print(f"  {f.grid_feat.shape[0]} voxels; median relative feature "
+          f"difference {med:.4f} (the canvas transport's uint8 canvas)")
+    for name, ok in checks.items():
+        print(f"  {'pass' if ok else 'FAIL'}: frame vs canvas transport: "
+              f"{name}")
+    if not all(checks.values()):
+        raise AssertionError("frame transport disagrees with the canvas "
+                             "transport")
+
+
+def _tap_cosine(a, b) -> float:
+    import torch
+
+    return min(float(torch.nn.functional.cosine_similarity(
+        x.float(), y.float(), dim=-1).min()) for x, y in zip(a, b))
+
+
+def vit_routes_run(net, k6_row, k2s_row):
+    """8-crop ViT-L taps through the unfused-MLP route (K1 + K6) and the
+    flash route (K2 on (B, H, T, D)) against the default fused route; the
+    launch counts of those two runs are K6's and K2-strided's."""
+    import torch
+
+    from avlmaps_torch.ops import fused_vit as fv
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    crops = torch.randn(BATCH * CROPS, 480, 480, 3, generator=g,
+                        device="cuda")
+    vit = net.backbone
+    with torch.no_grad():
+        ref = vit(crops)
+        _zero([k6_row])
+        fv.MLP_FUSE = False
+        try:
+            unfused = vit(crops)
+        finally:
+            fv.MLP_FUSE = True
+        k6_row["launches"] = k6_row["fn"].launches
+        _zero([k2s_row])
+        for blk in vit.blocks:
+            blk.attn_impl = "flash"
+        try:
+            flash = vit(crops)
+        finally:
+            for blk in vit.blocks:
+                blk.attn_impl = "fused"
+        k2s_row["launches"] = k2s_row["fn"].launches
+    cos_u, cos_f = _tap_cosine(unfused, ref), _tap_cosine(flash, ref)
+    print(f"  taps, per-token cosine min against the fused route: "
+          f"MLP_FUSE=False {cos_u:.6f} (K6 launches {k6_row['launches']}), "
+          f"attn_impl='flash' {cos_f:.6f} (mha_bhtd launches "
+          f"{k2s_row['launches']})")
+    n = len(vit.blocks)
+    if k6_row["launches"] != n or k2s_row["launches"] != n:
+        raise AssertionError("a route did not launch its kernel per block")
+    if min(cos_u, cos_f) < 0.999:
+        raise AssertionError("a ViT route disagrees with the fused route")
+
+
+def f32_lseg_check():
+    """A medium f32 LSeg on the card (unfused plain ops, full f32) against
+    the CPU, within the 5e-3 the CPU tests hold the port to flax."""
+    import torch
+
+    from avlmaps_torch.models.lseg import LSegConfig, LSegNet, init_params
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on for matmul or cuDNN")
+    cfg = LSegConfig.medium()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    net = LSegNet(cfg, device="cuda")
+    net.load_state_dict(init_params(cfg, gen), strict=True)
+    cpu = LSegNet(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    x = torch.randn(2, 192, 192, 3, generator=gen, device="cuda")
+    with torch.no_grad():
+        got = net(x).cpu()
+        want = cpu(x.cpu())
+    err = float((got - want).abs().max())
+    print(f"  medium f32 LSeg, card vs CPU: max |diff| {err:.3e} "
+          "(tolerance 5e-3 + 5e-3 * |CPU|)")
+    torch.testing.assert_close(got, want, atol=5e-3, rtol=5e-3)
 
 
 def clip_check():
@@ -941,10 +1394,34 @@ def main() -> int:
     rows = kernel_checks()
     print("score kernel checks (N=1e6, D=512, C=22 and 41):")
     rows += score_kernel_checks()
+    print("slice 3 kernel checks (K6 at M=7208, K=4096, N=1024; K2 on "
+          "(8, 16, 901, 64)):")
+    vit_rows = vit_kernel_checks()
+    from avlmaps_torch.ops import segment_scatter as ss
+
+    k5_row = dict(name="sorted_segment_scatter_add",
+                  fn=ss.sorted_segment_scatter_add, route="cuda",
+                  source="avlmaps_torch/csrc/segment_scatter.cu",
+                  replaces="avlmaps_tpu/ops/segment_scatter.py:358")
     with tempfile.TemporaryDirectory() as tmp:
         print("slice 1: ViT-L/16 bf16 map build, 720x1080, gs=1000 vh=30 "
               "cap=1e6:")
-        scene = slice_run(rows[:4], Path(tmp))
+        scene, net = slice_run(rows[:4], Path(tmp))
+        print("slice 3: throughput build, 64 packed 720x1080 frames, device "
+              "sampling, whole canvas, batch 16:")
+        captured = throughput_run(net, Path(tmp), k5_row, rows[:4])
+        print("slice 3: K5 on a real batch-16 step (B=124,416, W=640, "
+              "S=1e6+1):")
+        k5_check(captured, k5_row)
+        del captured
+        print("slice 3: frame transport, sliding, batch 4, 2 steps:")
+        frame_transport_run(net, Path(tmp), rows[3])
+        print("slice 3: ViT routes, 8 crops of 480^2:")
+        vit_routes_run(net, *vit_rows)
+        print("slice 3: medium f32 LSeg on the card:")
+        f32_lseg_check()
+        del net
+        torch.cuda.empty_cache()
         print("slice 2: CLIP ViT-B/32 text tower, card vs CPU:")
         enc = clip_check()
         for r in rows:
@@ -963,7 +1440,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    table = [{k: r[k] for k in keys} for r in rows]
+    table = [{k: r[k] for k in keys} for r in rows + [k5_row] + vit_rows]
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ without the repository's conftest:
 Shapes are small but inside what each kernel takes (width 256, head dim
 64, a partial last row block; for K7/K8 odd row counts, D from 24 to 768
 and a C that needs two shared-memory chunks); chip_smoke.py repeats the
-checks at the map-building and serving-query shapes.
+checks at the map-building and serving-query shapes.  K5 is held equal to
+K4 bit for bit on the same batch, and a K4 batch the split kernel cannot
+take (W = 1152) goes through K5 instead of raising.
 """
 
 import math
@@ -99,6 +101,68 @@ def test_segment_scatter_kernel(gen, feat_dtype):
     torch.testing.assert_close(got[:cap], want[:cap], atol=1e-4, rtol=1e-5)
 
 
+def _sorted_batch(gen, b, cap, d, aux_w, n_slots=400):
+    slots = torch.sort(torch.randint(0, n_slots, (b,), generator=gen,
+                                     device="cuda"))[0].to(torch.int32)
+    slots[-100:] = cap
+    feats = _randn(gen, b, d, dtype=torch.float32)
+    w = torch.rand(b, generator=gen, device="cuda")
+    aux = _randn(gen, b, aux_w, dtype=torch.float32)
+    return slots, feats, w, aux
+
+
+@pytest.mark.parametrize("rows", ["trash", "aligned"])
+def test_assembled_kernel_matches_plain_and_split_bitwise(gen, rows):
+    """K5 against index_add_ of the same update, and against K4 on the
+    split form of the same batch: equal bits on every row K4 writes."""
+    b, cap, d = 3000, 5000, 512
+    slots, feats, w, aux = _sorted_batch(gen, b, cap, d, 128)
+    s = cap + 1 if rows == "trash" else cap + 8
+    base = torch.randn(s, d + 128, generator=gen, device="cuda")
+    update = torch.cat([w[:, None] * feats, aux], dim=1)
+    before = ss.sorted_segment_scatter_add.launches
+    got = ss.sorted_segment_scatter_add(base.clone(), slots, update)
+    torch.cuda.synchronize()
+    assert ss.sorted_segment_scatter_add.launches == before + 1
+    want = ss.sorted_segment_scatter_add_ref(base.clone(), slots, update)
+    torch.testing.assert_close(got[:cap], want[:cap], atol=1e-4, rtol=1e-5)
+    split = ss.split_kernel(base.clone(), slots, feats, w, aux)
+    assert torch.equal(got[:cap], split[:cap])
+    if rows == "aligned":  # no trash row: the last real rows count too
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("wd", [640, 2100])
+def test_assembled_kernel_widths(gen, wd):
+    """Rows wider than one 1024-column chunk loop over chunks."""
+    b, cap = 2000, 3000
+    slots = torch.sort(torch.randint(0, 300, (b,), generator=gen,
+                                     device="cuda"))[0].to(torch.int32)
+    update = torch.randn(b, wd, generator=gen, device="cuda")
+    base = torch.randn(cap + 1, wd, generator=gen, device="cuda")
+    got = ss.sorted_segment_scatter_add(base.clone(), slots, update)
+    want = ss.sorted_segment_scatter_add_ref(base.clone(), slots, update)
+    torch.testing.assert_close(got[:cap], want[:cap], atol=1e-4, rtol=1e-5)
+
+
+def test_split_falls_back_to_assembled_kernel(gen):
+    """d = 1024, W = 1152: past the split kernel's width, the JAX route
+    assembles the update for K5 -- plain rows, no error."""
+    b, cap, d = 2000, 3000, 1024
+    slots, feats, w, aux = _sorted_batch(gen, b, cap, d, 128)
+    base = torch.randn(cap + 1, d + 128, generator=gen, device="cuda")
+    k4, k5 = (ss.sorted_segment_scatter_add_split.launches,
+              ss.sorted_segment_scatter_add.launches)
+    got = ss.sorted_segment_scatter_add_split(base.clone(), slots, feats, w,
+                                              aux)
+    torch.cuda.synchronize()
+    assert ss.sorted_segment_scatter_add_split.launches == k4
+    assert ss.sorted_segment_scatter_add.launches == k5 + 1
+    want = ss.sorted_segment_scatter_add_split_ref(base.clone(), slots,
+                                                   feats, w, aux)
+    torch.testing.assert_close(got[:cap], want[:cap], atol=1e-4, rtol=1e-5)
+
+
 def test_fuse_points_on_the_card_matches_the_cpu(gen):
     """The whole fusion step, card (K4) vs CPU (plain version)."""
     gs, vh, d, cap, b = 32, 8, 64, 4000, 5000
@@ -118,6 +182,126 @@ def test_fuse_points_on_the_card_matches_the_cpu(gen):
     assert torch.equal(card.occupied_flat.cpu(), cpu.occupied_flat)
     torch.testing.assert_close(card.accum[:-1].cpu(), cpu.accum[:-1],
                                atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("m", [200, 64])
+def test_gelu_matmul_kernel(gen, m):
+    x = _randn(gen, m, 1024)
+    w = _randn(gen, 256, 1024, std=1 / 32)
+    bias = _randn(gen, 256, std=0.1, dtype=torch.float32)
+    before = fv.gelu_matmul.launches
+    got = fv.gelu_matmul(x, w, bias)
+    torch.cuda.synchronize()
+    assert fv.gelu_matmul.launches == before + 1
+    torch.testing.assert_close(got.float(), fv.gelu_matmul_ref(
+        x, w, bias).float(), **BF16)
+
+
+@pytest.mark.parametrize("t_real", [77, 70])
+def test_mha_bhtd_kernel(gen, t_real):
+    """K2 on contiguous (B, H, T, 64) tensors and on strided views (the
+    head split of a qkv matrix)."""
+    b, t, heads = 3, 77, 4
+    q, k, v = (_randn(gen, b, heads, t, 64) for _ in range(3))
+    before = fv.mha_bhtd.launches
+    got = fv.mha_bhtd(q, k, v, scale=0.125, t_real=t_real)
+    torch.cuda.synchronize()
+    assert fv.mha_bhtd.launches == before + 1
+    torch.testing.assert_close(got.float(), fv.mha_bhtd_ref(
+        q, k, v, scale=0.125, t_real=t_real).float(), **BF16)
+    qkv = _randn(gen, b, t, 3, heads, 64).permute(2, 0, 3, 1, 4)
+    got = fv.mha_bhtd(qkv[0], qkv[1], qkv[2], scale=0.125, t_real=t_real)
+    torch.testing.assert_close(got.float(), fv.mha_bhtd_ref(
+        qkv[0], qkv[1], qkv[2], scale=0.125, t_real=t_real).float(), **BF16)
+
+
+@pytest.mark.parametrize("attn_impl,mlp_fuse", [("fused", False),
+                                                ("flash", True),
+                                                ("splash", True)])
+def test_vit_block_routes_on_the_card(gen, monkeypatch, attn_impl,
+                                      mlp_fuse):
+    """The unfused-MLP route (K1 + K6) and the flash/splash route (K2 on
+    (B, H, T, D)) on the card vs the same block on the CPU."""
+    from avlmaps_torch.models.lseg.vit import ViTBlock
+
+    monkeypatch.setattr(fv, "MLP_FUSE", mlp_fuse)
+    blk = ViTBlock(256, 4, 4, 1e-6, torch.bfloat16, attn_impl).cuda()
+    x = _randn(gen, 2, 50, 256)
+    counts = (fv.gelu_matmul.launches, fv.mha_bhtd.launches)
+    with torch.no_grad():
+        got = blk(x, t_real=50).float().cpu()
+        want = blk.cpu()(x.cpu(), t_real=50).float()
+    assert (fv.gelu_matmul.launches - counts[0],
+            fv.mha_bhtd.launches - counts[1]) == (
+        (1, 0) if attn_impl == "fused" else (0, 1))
+    torch.testing.assert_close(got, want, atol=5e-2, rtol=2e-2)
+
+
+def test_f32_vit_block_runs_on_the_card(gen):
+    """An f32 block on CUDA takes the unfused plain ops in full f32 (TF32
+    off), as the JAX package does off the TPU kernels."""
+    from avlmaps_torch.models.lseg.vit import ViTBlock
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    blk = ViTBlock(256, 4, 4, 1e-6, torch.float32).cuda()
+    x = torch.randn(2, 50, 256, generator=gen, device="cuda")
+    with torch.no_grad():
+        got = blk(x, t_real=50).cpu()
+        want = blk.cpu()(x.cpu(), t_real=50)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_device_sampled_step_makes_no_host_sync(gen):
+    """A warm device-sampled step (a 4-block bf16 LSeg of width 256 and
+    head dim 64, so the block kernels take it; whole canvas) runs under
+    set_sync_debug_mode('error'), and draws JAX's threefry bits on the
+    card as on the CPU."""
+    import numpy as np
+
+    from avlmaps_torch.geometry.projection import get_sim_cam_mat
+    from avlmaps_torch.map.vlmap_builder import (
+        device_sample_indices, make_frame_step_device_sampled)
+    from avlmaps_torch.models.lseg import (DenseViTConfig, LSegConfig,
+                                           LSegNet,
+                                           cast_params_for_inference,
+                                           init_params)
+
+    bf16 = torch.bfloat16
+    cfg = LSegConfig(
+        vit=DenseViTConfig(patch_size=16, width=256, layers=4, heads=4,
+                           hooks=(0, 1, 2, 3), pretrain_grid=4, dtype=bf16),
+        features=64, reassemble_ch=(64, 128, 256, 256), out_dim=96,
+        dtype=bf16)
+    net = LSegNet(cfg, device="cuda")
+    net.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
+    cast_params_for_inference(net)
+    h, w, b = 48, 64, 4
+    step = make_frame_step_device_sampled(
+        lambda x: net(x, upsample=False), gs=64, cs=0.1, vh=8,
+        calib_mat=get_sim_cam_mat(h, w), image_hw=(h, w), base_size=64,
+        crop_size=64, max_pts=500, seed=1, device="cuda")
+    state = vf.init_fusion_state(64, 8, 96, 4096, device="cuda")
+    canvas = torch.randint(0, 255, (b, 48, 64, 3), generator=gen,
+                           device="cuda").to(torch.uint8)
+    depth = torch.randint(300, 3000, (b, h, w), generator=gen,
+                          device="cuda").to(torch.int32)
+    pose = torch.eye(4, device="cuda").expand(b, 4, 4).contiguous()
+    fids = torch.arange(b, dtype=torch.int32, device="cuda")
+    valid = torch.ones(b, dtype=torch.bool, device="cuda")
+    with torch.no_grad():
+        step(state, canvas, depth, pose, fids, valid)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(state, canvas, depth, pose, fids + b, valid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert int(state.n_slots) > 0
+    on_card = device_sample_indices(fids, seed=1, max_pts=500,
+                                    n_pixels=h * w).cpu()
+    on_cpu = device_sample_indices(fids.cpu(), seed=1, max_pts=500,
+                                   n_pixels=h * w)
+    np.testing.assert_array_equal(on_card.numpy(), on_cpu.numpy())
 
 
 def test_vit_block_on_the_card(gen):

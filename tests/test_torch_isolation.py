@@ -125,3 +125,24 @@ def test_kernels_build_lazily():
     assert build._libs == {}
     assert set(build.sources()) == {"fused_vit", "segment_scatter",
                                     "similarity"}
+
+
+def test_slice_3_modules_are_scanned():
+    names = {p.relative_to(REPO / "avlmaps_torch").as_posix()
+             for p in SOURCES[:-1]}
+    assert {"utils/threefry.py", "pipeline/packed.py",
+            "pipeline/transport.py", "pipeline/loader.py"} <= names
+
+
+def test_slice_3_entry_points_default_to_cuda_and_raise_without_a_card(
+        monkeypatch):
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.vlmap_builder import (
+        make_frame_step, make_frame_step_device_sampled)
+
+    _no_card(monkeypatch)
+    kw = dict(gs=8, cs=0.1, vh=2, calib_mat=load_config().map_config
+              .calib_matrix(), image_hw=(32, 32), base_size=32, crop_size=32)
+    for factory in (make_frame_step, make_frame_step_device_sampled):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            factory(lambda x: x, **kw)

@@ -305,3 +305,58 @@ def test_lseg_checkpoint_loader_matches_jax_porter(tmp_path):
         ref = oracle(torch.from_numpy(x.transpose(0, 3, 1, 2))).numpy()
     np.testing.assert_allclose(out.transpose(0, 3, 1, 2), ref, rtol=5e-3,
                                atol=5e-3)
+
+
+# ---------------------------------------------------------- ViT routes --
+
+def _taps_pair(name, attn_impl):
+    """The JAX backbone (non-jitted, so patched module flags are read) and
+    the port's LSeg with the same weights, both with ``attn_impl``."""
+    import dataclasses
+
+    from avlmaps_tpu.models.lseg.vit import DenseViT as JaxDenseViT
+
+    _, variables = _flax(name)
+    jcfg = getattr(JaxLSegConfig, name)()
+    jvit = JaxDenseViT(dataclasses.replace(jcfg.vit, attn_impl=attn_impl))
+    tcfg = getattr(LSegConfig, name)()
+    tcfg = dataclasses.replace(
+        tcfg, vit=dataclasses.replace(tcfg.vit, attn_impl=attn_impl))
+    tnet = LSegNet(tcfg, device="cpu")
+    tnet.load_state_dict(params_from_flax(variables), strict=True)
+    return (lambda x: jvit.apply({"params": variables["params"]["backbone"]},
+                                 x)), tnet
+
+
+def _assert_taps_match(name, japply, tnet):
+    hw = SIZES[name]
+    x = np.random.default_rng(6).normal(size=(2, hw, hw, 3)).astype(
+        np.float32)
+    want = japply(jnp.asarray(x))
+    with torch.no_grad():
+        got = tnet.backbone(torch.from_numpy(x))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-3,
+                                   atol=5e-3)
+
+
+@pytest.mark.parametrize("attn_impl", ["flash", "splash", "xla"])
+@pytest.mark.parametrize("name", ["tiny16", "medium"])
+def test_taps_attention_routes_match_flax(name, attn_impl):
+    """Every attn_impl against the JAX backbone with the same one on the
+    CPU, where JAX takes its einsum (flash, splash) or XLA path."""
+    _assert_taps_match(name, *_taps_pair(name, attn_impl))
+
+
+@pytest.mark.parametrize("name", ["tiny16", "medium"])
+def test_taps_unfused_mlp_match_flax(name, monkeypatch):
+    """MLP_FUSE=False in both packages, the JAX fused kernels interpreted:
+    the port's K1 + K6 plain versions against them."""
+    from avlmaps_tpu.ops import fused_vit as jfv
+    from avlmaps_torch.ops import fused_vit as tfv
+
+    monkeypatch.setattr(jfv, "FORCE_INTERPRET", True)
+    monkeypatch.setattr(jfv, "MLP_FUSE", False)
+    monkeypatch.setattr(tfv, "MLP_FUSE", False)
+    _assert_taps_match(name, *_taps_pair(name, "fused"))

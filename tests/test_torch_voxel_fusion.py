@@ -152,3 +152,74 @@ def test_occupied_from_grid_pos_inverts_slots(rng):
     assert (occ >= 0).sum() == 20
     np.testing.assert_array_equal(occ[pos[:, 0], pos[:, 1], pos[:, 2]],
                                   np.arange(20))
+
+
+# (dedup_scatter, scatter_split, scatter_rle): the accumulate's routes
+ROUTES = [(False, True, True), (True, True, True), (True, False, True),
+          (True, False, False)]
+
+
+@pytest.mark.parametrize("route", ROUTES,
+                         ids=["xla", "split", "assembled", "assembled_norle"])
+@pytest.mark.parametrize("b", [300, 100_050], ids=["small", "over_split"])
+def test_fuse_points_routes_match_jax(rng, route, b):
+    """Every accumulate route with the JAX package's flags, the JAX kernels
+    interpreted.  D = 128 keeps the JAX split kernel on its compiled path
+    for the small batch; the 100,050-row batch exceeds its row budget, so
+    the split route falls back to the assembled kernel there (and in the
+    port on a card)."""
+    dedup, split, rle = route
+    d = 128
+    vids = rng.integers(0, GS * GS * VH, b).astype(np.int32)
+    batch = (vids, rng.normal(size=(b, d)).astype(np.float32),
+             rng.integers(0, 255, (b, 3)).astype(np.float32),
+             rng.uniform(0.1, 1.0, b).astype(np.float32), rng.random(b) > 0.1)
+    js = jvf.init_fusion_state(GS, VH, d, 256)
+    ts = tvf.init_fusion_state(GS, VH, d, 256, device="cpu")
+    jax_ss.FORCE_INTERPRET = dedup
+    try:
+        for _ in range(2):
+            js = jvf.fuse_points(js, *map(jnp.asarray, batch), gs=GS, vh=VH,
+                                 dedup_scatter=dedup, scatter_split=split,
+                                 scatter_rle=rle)
+            ts = tvf.fuse_points(ts, *map(torch.from_numpy, batch), gs=GS,
+                                 vh=VH, dedup_scatter=dedup,
+                                 scatter_split=split, scatter_rle=rle)
+            _assert_same_state(ts, js)
+    finally:
+        jax_ss.FORCE_INTERPRET = False
+
+
+def test_sort_batch_orders_rows_by_final_slot(rng):
+    """The accumulate's input: ascending slots, invalid points last in the
+    trash slot, weights zero for them, positions once per new slot."""
+    batch = _batch(rng, 400)
+    state = tvf.init_fusion_state(GS, VH, D, 256, device="cpu")
+    sb = tvf.sort_batch(state, *map(torch.from_numpy, batch), gs=GS, vh=VH)
+    slots = sb.slots.numpy()
+    assert (np.diff(slots) >= 0).all()
+    n_invalid = int((~batch[4]).sum())
+    assert (slots[-n_invalid:] == 256).all()
+    assert (sb.w.numpy()[-n_invalid:] == 0).all()
+    assert int(sb.n_unique) == len(np.unique(batch[0][batch[4]]))
+    # the (row, col, h) columns are added once per allocated slot
+    assert int((sb.aux[:, 4:7].abs().sum(1) > 0).sum()) <= int(sb.n_unique)
+    assert sb.feats.shape == (400, D) and sb.aux.shape == (400, 128)
+
+
+def test_dedup_defaults_by_device(rng, monkeypatch):
+    """``dedup_scatter=None`` is off for a CPU state (the JAX default off
+    its accelerator): the XLA-scatter route, ``index_add_``."""
+    calls = []
+    monkeypatch.setattr(tvf, "sorted_segment_scatter_add_split",
+                        lambda *a, **k: calls.append("split"))
+    monkeypatch.setattr(tvf, "sorted_segment_scatter_add",
+                        lambda *a, **k: calls.append("assembled"))
+    ts = tvf.init_fusion_state(GS, VH, D, 256, device="cpu")
+    _torch_fuse(ts, _batch(rng, 50))
+    assert calls == [] and int(ts.n_slots) > 0
+    tvf.fuse_points(ts, *map(torch.from_numpy, _batch(rng, 50)), gs=GS,
+                    vh=VH, dedup_scatter=True)
+    tvf.fuse_points(ts, *map(torch.from_numpy, _batch(rng, 50)), gs=GS,
+                    vh=VH, dedup_scatter=True, scatter_split=False)
+    assert calls == ["split", "assembled"]
