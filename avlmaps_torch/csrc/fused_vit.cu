@@ -13,49 +13,66 @@
 // M = 8 * 901 = 7208 token rows, width 1024) all four are bf16 tensor-core
 // work well above the card's ~295 FLOP/byte ridge (K1: 45 GFLOP over
 // 21 MB; K3: 121 GFLOP over 46 MB; K2: 27 GFLOP over 59 MB; K6: 60 GFLOP
-// over 69 MB), so the bound is the 989 TFLOP/s bf16 peak.  The design keeps
-// the operands of every product in shared memory and feeds the tensor cores
-// through WMMA (mma.sync, bf16 in, f32 accumulate); wgmma/TMA pipelines are
-// later work.
+// over 69 MB), so the bound is the 989 TFLOP/s bf16 peak, which only
+// wgmma reaches.
+//
+// K2 and K3 are Hopper designs: TMA feeds shared memory (128-byte swizzle,
+// mbarrier rings, one producer thread) and wgmma computes with f32
+// accumulators in registers.  K1 and K6 still run the older WMMA GEMM
+// (mma.sync over a 3-stage cp.async ring); wgmma_gemm_kernel takes its
+// prologue and epilogue as template parameters so that they can move onto
+// it.
 //
 // K1: two launches.  ln_stats_kernel computes each row's mean and
 //     1/sqrt(var + eps) in f32 (two-pass, one warp per row; 8 bytes a row
-//     go to device memory).  The GEMM block owns a 64x128 output tile; x
-//     and W stream through a 3-stage cp.async ring in 32-deep slices, and
-//     each x slice is normalised in shared memory -- (x - mean) * rstd *
-//     gamma + beta in f32, rounded to bf16 -- before the tensor cores read
-//     it, so the LayerNorm output never reaches device memory.  The ring
-//     takes 46 KB of shared memory, so several blocks share an SM, where
-//     normalising the block's 64 full rows up front would hold 128 KB and
-//     leave one block per SM.  The epilogue adds the bias in f32 and
-//     rounds to bf16 once.
-// K2: flash-style.  K and V of one head at T=901 are 2 x 115 KB in bf16,
-//     too much for one block beside Q and the logits, so a block owns
-//     (batch, head, 64 queries) and walks K/V in 64-key tiles with an
-//     online-softmax running max and sum (f32).  q, k, v and the output are
-//     addressed by (batch, head, token) element strides: the (B*T, 3W) qkv
-//     matrix (q, k, v at column offsets h*64, W+h*64, 2W+h*64, the output
-//     at (row, h*64) of (B*T, W)) and contiguous (B, H, T, 64) tensors are
-//     the same kernel, with no transpose and no pad copy.  Keys >= t_real
-//     are masked to -inf.  P is rounded to bf16 for the PV product, as the
-//     TPU kernel does; the row sum stays f32.
-// K3: K1's row statistics, then two launches of the K1 GEMM body (a fused
-//     single-kernel form is later work): LN -> fc -> +b1 -> exact-erf GELU
-//     (erff), which writes the (M, 4096) bf16 intermediate -- the same
-//     bf16 values the TPU kernel feeds its second MXU product -- then
-//     h.W2^T + b2 + x.  Each 64-row block reads the whole of W1 (fc) or W2
-//     (proj) across its column blocks, so at M=7208 each 8 MB weight is
-//     read ceil(M/64) = 113 times per launch, from L2 (50 MB) after the
-//     first pass; the intermediate costs 2 x 59 MB of device traffic.
-// K6: the same GEMM body with a GELU prologue: each landed x slice becomes
-//     bf16(0.5 x (1 + erff(x / sqrt 2))) in shared memory, as K1 normalises
-//     its slice, so the GELU output never reaches device memory; the
-//     epilogue adds the bias.  The TPU kernel's 10-term polynomial erf was
-//     a VPU economy; erff is K3's GELU.
+//     go to device memory).  The WMMA GEMM block owns a 64x128 output
+//     tile; x and W stream through a 3-stage cp.async ring in 32-deep
+//     slices, and each x slice is normalised in shared memory -- (x - mean)
+//     * rstd * gamma + beta in f32, rounded to bf16 -- before the tensor
+//     cores read it.  The epilogue adds the bias in f32 and rounds once.
+// K2: attn_wgmma_kernel, FlashAttention-3's structure.  A block owns
+//     (batch, head, 128 queries): two consumer warpgroups of 64 query rows
+//     and one producer warp.  Q arrives once by TMA; K and V tiles of 64
+//     keys arrive by TMA into a 4-stage ring.  S = Q K^T is a wgmma from
+//     shared memory into registers; the online softmax (f32, running max
+//     and sum, exp2 with scale * log2 e folded in) runs in registers with
+//     quad shuffles; P is rounded to bf16 in registers and is the register
+//     A operand of the P V wgmma (V MN-major: the transposed-B form).  S, P
+//     and O never touch shared memory until O / l is staged for one TMA
+//     store.  Operands are 4-D tensor maps (d = 64, token, head, batch)
+//     built from the (batch, head, token) element strides, so the (B*T, 3W)
+//     qkv matrix and (B, H, T, 64) tensors are one kernel with no copy and
+//     no pad: tokens >= T of a crop load as zeros, not as the next crop's
+//     rows, and the output store stops at T.  Keys >= t_real are masked to
+//     -inf in the last key tile only.
+// K3: ln_stats_kernel, then two launches of wgmma_gemm_kernel: LN -> fc ->
+//     +b1 -> exact-erf GELU (erff) writes the (M, 4096) bf16 intermediate
+//     -- the same bf16 values the TPU kernel feeds its second MXU product
+//     -- then h.W2^T + b2 + x.  The GEMM is persistent (one block per SM
+//     walking 128 x BN output tiles, BN = 256 where N allows, neighbouring
+//     blocks on neighbouring row tiles of one weight panel); one producer
+//     thread keeps a 4-stage ring of 64-deep TMA tiles in flight, and two
+//     consumer warpgroups (64 rows each) run wgmma with the accumulator in
+//     registers (setmaxnreg moves registers from the producer to them).
+//     The LN prologue normalises each landed x tile in shared memory, in
+//     its swizzled layout, and fences it (fence.proxy.async) before wgmma
+//     reads it; the epilogues add the bias and apply GELU, or add the bias
+//     and the residual x, in f32 from the accumulator registers and store
+//     bf16.  The intermediate's round trip costs 2 x 59 MB at M = 7208.
+//     One fused kernel would need the (rows, 1024) f32 accumulator of the
+//     second product resident beside the fc chunks -- 256 KB for 64 rows,
+//     the whole register file -- so full fusion is left to a cluster /
+//     distributed-shared-memory design.
+// K6: the WMMA GEMM with a GELU prologue: each landed x slice becomes
+//     bf16(0.5 x (1 + erff(x / sqrt 2))) in shared memory.  The TPU
+//     kernel's 10-term polynomial erf was a VPU economy; erff is K3's GELU.
 //
-// Every launcher returns cudaGetLastError() so the Python wrapper can
-// raise on a refused launch.
+// Every launcher returns a cudaError_t (0 on success) so the Python
+// wrapper can raise on a refused launch.  Tensor maps are encoded on each
+// call through the driver entry point cuTensorMapEncodeTiled (no -lcuda)
+// and passed by value as __grid_constant__ parameters.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -78,6 +95,10 @@ constexpr int GEMM_THREADS = 256;  // 8 warps: 2 (rows) x 4 (cols), 32x32 each
 
 enum { PRO_NONE = 0, PRO_LN = 1, PRO_GELU = 2 };
 enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESID = 2 };
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
@@ -143,20 +164,19 @@ ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats,
   if (lane == 0) stats[row] = make_float2(mu, rstd);
 }
 
-// out[M, N] = epi(A'[M, K] . W[N, K]^T + bias) with A' = LN(A) (PRO_LN),
-// GELU(A) (PRO_GELU) or A.  W is a torch Linear weight (out_features,
-// in_features), row-major.  A and W stream through a STAGES-deep cp.async
-// ring in 32-deep slices; with a prologue each A slice is transformed in
-// shared memory (LN from the precomputed row statistics) before the tensor
-// cores read it, so the transformed A never reaches device memory.  The
-// f32 epilogue tile aliases the ring.
-template <int PRO, int EPI>
+// out[M, N] = A'[M, K] . W[N, K]^T + bias with A' = LN(A) (PRO_LN) or
+// GELU(A) (PRO_GELU): K1 and K6.  W is a torch Linear weight
+// (out_features, in_features), row-major.  A and W stream through a
+// STAGES-deep cp.async ring in 32-deep slices; each A slice is transformed
+// in shared memory (LN from the precomputed row statistics) before the
+// tensor cores read it, so the transformed A never reaches device memory.
+// The f32 epilogue tile aliases the ring.
+template <int PRO>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const bf16* __restrict__ A, const float2* __restrict__ stats,
             const float* __restrict__ gamma, const float* __restrict__ beta,
             const bf16* __restrict__ W, const float* __restrict__ bias,
-            const bf16* __restrict__ resid, bf16* __restrict__ out, int M,
-            int N, int K) {
+            bf16* __restrict__ out, int M, int N, int K) {
   static_assert(BM * BK / 8 == GEMM_THREADS, "one A vector per thread");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -207,7 +227,7 @@ gemm_kernel(const bf16* __restrict__ A, const float2* __restrict__ stats,
     __syncthreads();  // stage kt landed; stage kt-1 fully consumed
     bf16* as = As + (kt % STAGES) * BM * LDB;
     const bf16* bs = Bs + (kt % STAGES) * BN * LDB;
-    if (PRO != PRO_NONE) {
+    {
       const int r = tid / (BK / 8), q = (tid % (BK / 8)) * 8;
       const int k = kt * BK + q;
       uint4 u = *reinterpret_cast<uint4*>(as + r * LDB + q);
@@ -220,11 +240,8 @@ gemm_kernel(const bf16* __restrict__ A, const float2* __restrict__ stats,
                                    * gamma[k + j] + beta[k + j]);
       } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float v = __bfloat162float(hv[j]);
-          hv[j] = __float2bfloat16(0.5f * v
-                                   * (1.f + erff(v * 0.70710678118654752f)));
-        }
+        for (int j = 0; j < 8; ++j)
+          hv[j] = __float2bfloat16(gelu_erf(__bfloat162float(hv[j])));
       }
       *reinterpret_cast<uint4*>(as + r * LDB + q) = u;
       __syncthreads();
@@ -265,25 +282,11 @@ gemm_kernel(const bf16* __restrict__ A, const float2* __restrict__ stats,
     const int row = m0 + r;
     if (row >= M) continue;
     const int col = n0 + q;
-    float o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = Cs[r * LDC + q + j] + bias[col + j];
-    if (EPI == EPI_GELU) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        o[j] = 0.5f * o[j] * (1.f + erff(o[j] * 0.70710678118654752f));
-    }
-    if (EPI == EPI_RESID) {
-      uint4 u = *reinterpret_cast<const uint4*>(
-          resid + static_cast<size_t>(row) * N + col);
-      const bf16* hv = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] += __bfloat162float(hv[j]);
-    }
     uint4 u;
     bf16* hv = reinterpret_cast<bf16*>(&u);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) hv[j] = __float2bfloat16(o[j]);
+    for (int j = 0; j < 8; ++j)
+      hv[j] = __float2bfloat16(Cs[r * LDC + q + j] + bias[col + j]);
     *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * N + col) = u;
   }
 }
@@ -301,168 +304,789 @@ cudaError_t launch_stats(const bf16* x, float2* stats, int M, int K,
   return cudaGetLastError();
 }
 
-template <int PRO, int EPI>
+template <int PRO>
 cudaError_t launch_gemm(const bf16* A, const float2* stats,
                         const float* gamma, const float* beta, const bf16* W,
-                        const float* bias, const bf16* resid, bf16* out,
-                        int M, int N, int K, cudaStream_t stream) {
+                        const float* bias, bf16* out, int M, int N, int K,
+                        cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<PRO, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_kernel<PRO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(GEMM_SMEM));
   if (e != cudaSuccess) return e;
   dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_kernel<PRO, EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
-      A, stats, gamma, beta, W, bias, resid, out, M, N, K);
+  gemm_kernel<PRO><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
+      A, stats, gamma, beta, W, bias, out, M, N, K);
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- K2 ----
-constexpr int HD = 64;              // head dim
-constexpr int QT = 64;              // queries per block (16 per warp)
-constexpr int KT = 64;              // keys per tile
-constexpr int LDH = HD + 8;         // bf16 tile row stride
-constexpr int LDS = KT + 4;         // f32 tile row stride (also for O, 64 wide)
-constexpr int MHA_THREADS = 128;
-constexpr size_t MHA_SMEM =
-    3 * QT * LDH * sizeof(bf16)           // Q, K, V tiles
-    + 4 * 16 * LDS * sizeof(float)        // per-warp logits
-    + 4 * 16 * LDH * sizeof(bf16)         // per-warp probabilities
-    + 4 * 16 * LDS * sizeof(float);       // per-warp output accumulator
+// ------------------------------------------------ Hopper primitives ----
 
-// Element strides of one operand: batch, head, token (the head dim is
-// contiguous).
-struct Strides {
-  long long b, h, t;
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__global__ void __launch_bounds__(MHA_THREADS)
-mha_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ out, Strides sq,
-           Strides sk, Strides sv, Strides so, int T, int t_real,
-           float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + QT * LDH;
-  bf16* Vs = Ks + KT * LDH;
-  float* Ss = reinterpret_cast<float*>(Vs + KT * LDH);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + 4 * 16 * LDS);
-  float* Os = reinterpret_cast<float*>(Ps + 4 * 16 * LDH);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
 
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 
-  // tokens r0..r0+63 of one (batch, head); tokens >= T read as zero
-  auto load_tile = [&](bf16* dst, const bf16* src, long long st, int r0) {
-    for (int c = tid; c < 64 * (HD / 8); c += MHA_THREADS) {
-      const int r = c / (HD / 8), e = (c % (HD / 8)) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r0 + r < T)
-        val = *reinterpret_cast<const uint4*>(src + (r0 + r) * st + e);
-      *reinterpret_cast<uint4*>(dst + r * LDH + e) = val;
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Spin until the barrier's phase with the given parity has completed.  A
+// pipeline that never completes (a lost TMA transaction) traps after
+// 2^24 polls -- seconds, against microseconds for a real wait -- so a
+// fault surfaces as a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t i = 0; !mbar_try_wait(addr, parity); ++i)
+    if (i == (1u << 24)) __trap();
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// Shared -> global tile store; elements outside the tensor are dropped.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to accumulator registers across
+// the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// Shared-memory matrix descriptor for a tile whose rows are 128 bytes
+// (64 bf16), 128-byte swizzled by TMA, from a 1024-byte aligned base:
+// 8-row swizzle atoms of 1024 bytes.  Both byte offsets are 1024: for a
+// K-major operand the stride between 8-row groups (the leading offset is
+// unused); for an MN-major operand 64 wide the stride between 8-deep K
+// groups (the other is unused).  Advancing the start address by 32 bytes
+// steps 16 elements along a K-major row.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16)
+         | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared
+// memory (128-byte swizzle); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32],
+                                                uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared
+// memory (128-byte swizzle); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64],
+                                                uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 256] (+)= A[64 x 16] . B[16 x 256], A and B K-major in shared
+// memory (128-byte swizzle); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n256_ss(float (&d)[128],
+                                                uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (bf16 pairs
+// in the accumulator layout), B MN-major in shared memory (transposed).
+__device__ __forceinline__ void wgmma_m64n64_rs_tb(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// ------------------------------------------- K3: the wgmma GEMM ----
+
+constexpr int WG_BM = 128;     // output tile rows: two consumer warpgroups
+constexpr int WG_BK = 64;      // one 128-byte swizzled row of bf16
+constexpr int WG_STAGES = 4;   // TMA ring depth
+constexpr int WG_THREADS = 384;  // producer warpgroup + two consumers
+
+template <int TBN>
+constexpr size_t wg_gemm_smem() {
+  return 1024  // slack to align the dynamic base to the 1024-byte atom
+         + static_cast<size_t>(WG_STAGES) * (WG_BM + TBN) * WG_BK
+               * sizeof(bf16)
+         + 2 * WG_STAGES * sizeof(uint64_t);
+}
+
+template <int TBN>
+__device__ __forceinline__ void wgmma_tile(float (&acc)[TBN / 2],
+                                           uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (TBN == 256) wgmma_m64n256_ss(acc, da, db, scale_d);
+  else wgmma_m64n128_ss(acc, da, db, scale_d);
+}
+
+// out[M, N] = epi(A'[M, K] . W[N, K]^T) with A' = LN(A) (PRO_LN, from the
+// precomputed row statistics) or A (PRO_NONE); epi adds the bias, then
+// applies GELU (EPI_GELU) or adds the residual (EPI_RESID), in f32, and
+// rounds to bf16 once.  tmA / tmB are 2-D tensor maps of A (M, K) and W
+// (N, K) with 64 x 128 and 64 x TBN boxes, 128-byte swizzle.  K % 64 == 0
+// and N % TBN == 0; rows past M load as zeros and are not stored.
+template <int PRO, int EPI, int TBN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
+                  const __grid_constant__ CUtensorMap tmB,
+                  const float2* __restrict__ stats,
+                  const float* __restrict__ gamma,
+                  const float* __restrict__ beta,
+                  const float* __restrict__ bias,
+                  const bf16* __restrict__ resid, bf16* __restrict__ out,
+                  int M, int N, int K) {
+  constexpr int A_ELEMS = WG_BM * WG_BK, B_ELEMS = TBN * WG_BK;
+  constexpr uint32_t STAGE_BYTES = (A_ELEMS + B_ELEMS) * sizeof(bf16);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + WG_STAGES * A_ELEMS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + WG_STAGES * B_ELEMS);
+  uint64_t* empty = full + WG_STAGES;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int m_tiles = (M + WG_BM - 1) / WG_BM;
+  const int n_tiles_total = m_tiles * (N / TBN);
+  const int nk = K / WG_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-  };
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  load_tile(Qs, qb, sq.t, q0);
-  float* Sw = Ss + warp * 16 * LDS;
-  bf16* Pw = Ps + warp * 16 * LDH;
-  float* Ow = Os + warp * 16 * LDS;
-  for (int i = lane; i < 16 * LDS; i += 32) Ow[i] = 0.f;
-
-  // lane pair (2r, 2r+1) owns row r of the warp's 16; each lane 32 columns
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
-  float m_run = -INFINITY, l_run = 0.f;
-  const int n_kv = (t_real + KT - 1) / KT;
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * KT;
-    __syncthreads();  // previous tile fully consumed
-    load_tile(Ks, kb, sk.t, k0);
-    load_tile(Vs, vb, sv.t, k0);
-    __syncthreads();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s[4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) wmma::fill_fragment(s[n], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Qs + warp * 16 * LDH + kk, LDH);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + n * 16 * LDH + kk, LDH);
-        wmma::mma_sync(s[n], a, kf, s[n]);
+  if (wg == 0) {
+    // producer: one thread keeps the ring full across this block's tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles_total; tile += gridDim.x) {
+        const int m0 = (tile % m_tiles) * WG_BM;
+        const int n0 = (tile / m_tiles) * TBN;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          tma_load_2d(As + stage * A_ELEMS, &tmA, &full[stage], kb * WG_BK,
+                      m0);
+          tma_load_2d(Bs + stage * B_ELEMS, &tmB, &full[stage], kb * WG_BK,
+                      n0);
+          if (++stage == WG_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;  // this consumer's 64-row half of the tile
+    const int warp = tid / 32, lane = tid % 32;
+    float acc[TBN / 2];
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-      wmma::store_matrix_sync(Sw + n * 16, s[n], LDS, wmma::mem_row_major);
-    __syncwarp();
+    for (int i = 0; i < TBN / 2; ++i) acc[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < n_tiles_total; tile += gridDim.x) {
+      const int m0 = (tile % m_tiles) * WG_BM;
+      const int n0 = (tile / m_tiles) * TBN;
+      // LN prologue: this thread normalises 16-byte chunk (tid % 8) of
+      // rows tid / 8 + 16 q of the half tile; in the swizzled layout that
+      // chunk holds logical chunk (tid % 8) ^ (row % 8) of the K slice
+      float2 st[4];
+      const int lchunk = (tid % 8) ^ ((tid / 8) % 8);
+      if constexpr (PRO == PRO_LN) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = m0 + cw * 64 + tid / 8 + 16 * q;
+          st[q] = row < M ? stats[row] : make_float2(0.f, 0.f);
+        }
+      }
+      int prev = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&full[stage], phase);
+        bf16* a = As + stage * A_ELEMS + cw * 64 * WG_BK;
+        if constexpr (PRO == PRO_LN) {
+          const int k = kb * WG_BK + lchunk * 8;
+          const float4 g0 = *reinterpret_cast<const float4*>(gamma + k);
+          const float4 g1 = *reinterpret_cast<const float4*>(gamma + k + 4);
+          const float4 c0 = *reinterpret_cast<const float4*>(beta + k);
+          const float4 c1 = *reinterpret_cast<const float4*>(beta + k + 4);
+          const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+          const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            uint4* p = reinterpret_cast<uint4*>(
+                reinterpret_cast<unsigned char*>(a)
+                + (tid / 8 + 16 * q) * 128 + (tid % 8) * 16);
+            uint4 u = *p;
+            bf16* hv = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              hv[j] = __float2bfloat16((__bfloat162float(hv[j]) - st[q].x)
+                                       * st[q].y * g[j] + c[j]);
+            *p = u;
+          }
+          fence_proxy_async();
+          named_bar_sync(1 + cw, 128);
+        }
+        const uint64_t da = sw128_desc(a);
+        const uint64_t db = sw128_desc(Bs + stage * B_ELEMS);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk)
+          wgmma_tile<TBN>(acc, da + 2 * kk, db + 2 * kk, (kb | kk) != 0);
+        wgmma_commit();
+        fence_regs(acc);
+        // keep one group in flight: the previous stage is now free
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == WG_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
 
-    // online softmax over this tile for row r (f32 throughout)
-    float lg[32];
-    float mx = -INFINITY;
+      // epilogue from the accumulator registers: d[4j + {0,1}] is (row,
+      // col + {0,1}) and d[4j + {2,3}] is (row + 8, col + {0,1})
+      const int row0 = m0 + cw * 64 + warp * 16 + lane / 4;
+      const int colb = n0 + 2 * (lane % 4);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      float x = Sw[r * LDS + c0 + i] * scale;
-      if (k0 + c0 + i >= t_real) x = -INFINITY;
-      lg[i] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);  // finite: key k0 < t_real
-    const float alpha = expf(m_run - m_new);
-    float sum = 0.f;
+      for (int j = 0; j < TBN / 8; ++j) {
+        const int col = colb + 8 * j;
+        const float2 bb = *reinterpret_cast<const float2*>(bias + col);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float p = expf(lg[i] - m_new);
-      sum += p;
-      Pw[r * LDH + c0 + i] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) Ow[r * LDS + c0 + i] *= alpha;
-    __syncwarp();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      wmma::load_matrix_sync(o[n], Ow + n * 16, LDS, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < KT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Pw + kk, LDH);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, Vs + kk * LDH + n * 16, LDH);
-        wmma::mma_sync(o[n], a, vf, o[n]);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row0 + 8 * hh;
+          if (row >= M) continue;
+          float v0 = acc[4 * j + 2 * hh] + bb.x;
+          float v1 = acc[4 * j + 2 * hh + 1] + bb.y;
+          const size_t off = static_cast<size_t>(row) * N + col;
+          if constexpr (EPI == EPI_GELU) {
+            v0 = gelu_erf(v0);
+            v1 = gelu_erf(v1);
+          } else if constexpr (EPI == EPI_RESID) {
+            const float2 r = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(resid + off));
+            v0 += r.x;
+            v1 += r.y;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(out + off) =
+              __floats2bfloat162_rn(v0, v1);
+        }
       }
     }
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      wmma::store_matrix_sync(Ow + n * 16, o[n], LDS, wmma::mem_row_major);
-    __syncwarp();
   }
+}
 
-  const int row = q0 + warp * 16 + r;
-  if (row < T) {
-    bf16* dst = out + b * so.b + h * so.h + row * so.t + c0;
-#pragma unroll
-    for (int i = 0; i < 32; i += 8) {
-      uint4 u;
-      bf16* hv = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        hv[j] = __float2bfloat16(Ow[r * LDS + c0 + i + j] / l_run);
-      *reinterpret_cast<uint4*>(dst + i) = u;
+// ------------------------------------------- K2: wgmma attention ----
+
+constexpr int AT_QT = 128;      // queries per block: two warpgroups of 64
+constexpr int AT_KT = 64;       // keys per tile
+constexpr int AT_HD = 64;       // head dim: one 128-byte row
+constexpr int AT_STAGES = 4;    // K/V ring depth
+constexpr int AT_THREADS = 288;  // two consumer warpgroups + producer warp
+constexpr int AT_TILE = AT_KT * AT_HD;  // elements of one K or V tile
+constexpr size_t AT_SMEM = 1024 + (AT_QT * AT_HD + 2 * AT_STAGES * AT_TILE)
+                                      * sizeof(bf16)
+                           + (1 + 2 * AT_STAGES) * sizeof(uint64_t);
+
+// tmQ, tmK, tmV, tmO: 4-D tensor maps (d = 64, token, head, batch) with
+// 64 x 64 boxes, 128-byte swizzle.  Block (query tile, head, batch).
+__global__ void __launch_bounds__(AT_THREADS, 2)
+attn_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
+                  const __grid_constant__ CUtensorMap tmK,
+                  const __grid_constant__ CUtensorMap tmV,
+                  const __grid_constant__ CUtensorMap tmO, int T, int t_real,
+                  float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // two 64-row halves
+  bf16* Ks = Qs + AT_QT * AT_HD;
+  bf16* Vs = Ks + AT_STAGES * AT_TILE;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + AT_STAGES * AT_TILE);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + AT_STAGES;
+
+  const int q0 = blockIdx.x * AT_QT, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_kv = (t_real + AT_KT - 1) / AT_KT;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < AT_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
+    mbar_init_fence();
   }
+  __syncthreads();
+
+  if (warp == 8) {
+    // producer warp: Q once, then the K/V ring
+    if (lane == 0) {
+      mbar_expect_tx(qbar, AT_QT * AT_HD * sizeof(bf16));
+      tma_load_4d(Qs, &tmQ, qbar, 0, q0, h, b);
+      tma_load_4d(Qs + 64 * AT_HD, &tmQ, qbar, 0, q0 + 64, h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < n_kv; ++j) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * AT_TILE * sizeof(bf16));
+        tma_load_4d(Ks + stage * AT_TILE, &tmK, &full[stage], 0, j * AT_KT,
+                    h, b);
+        tma_load_4d(Vs + stage * AT_TILE, &tmV, &full[stage], 0, j * AT_KT,
+                    h, b);
+        if (++stage == AT_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    const int cw = warp / 4, tid = threadIdx.x % 128;
+    bf16* Qh = Qs + cw * 64 * AT_HD;
+    // log2-domain logits: p = exp2(s * scale * log2 e - m)
+    const float sl2 = scale * 1.4426950408889634f;
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    mbar_wait(qbar, 0);
+    const uint64_t dq = sw128_desc(Qh);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = 0; j < n_kv; ++j) {
+      mbar_wait(&full[stage], phase);
+      float s[32];
+      const uint64_t dk = sw128_desc(Ks + stage * AT_TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < AT_HD / 16; ++kk)
+        wgmma_m64n64_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // s[4n + {0,1}]: row r, keys 8n + 2 (lane % 4) + {0,1};
+      // s[4n + {2,3}]: row r + 8, the same keys
+      if (j == n_kv - 1) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (j * AT_KT + 8 * n + 2 * (lane % 4) + e >= t_real) {
+              s[4 * n + e] = -INFINITY;
+              s[4 * n + 2 + e] = -INFINITY;
+            }
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // finite: key j * 64 < t_real for every tile
+        const float m_new = fmaxf(m_run[r], mx * sl2);
+        alpha[r] = exp2f(m_run[r] - m_new);
+        m_run[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(fmaf(s[4 * n + 2 * r + e], sl2, -m_new));
+            s[4 * n + 2 * r + e] = p;
+            sum += p;
+          }
+        // per-thread partial row sums; the quad is summed at the end
+        l_run[r] = l_run[r] * alpha[r] + sum;
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[4 * n] *= alpha[0];
+        o[4 * n + 1] *= alpha[0];
+        o[4 * n + 2] *= alpha[1];
+        o[4 * n + 3] *= alpha[1];
+      }
+      // P in bf16 as the register A operand: k-step kk covers keys
+      // 16 kk .. 16 kk + 15, the accumulator's n-blocks 2 kk and 2 kk + 1
+      const uint64_t dv = sw128_desc(Vs + stage * AT_TILE);
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = 2 * kk + i / 2, e = 2 * (i % 2);
+          __nv_bfloat162 v = __floats2bfloat162_rn(s[4 * n + e],
+                                                   s[4 * n + e + 1]);
+          pa[kk][i] = *reinterpret_cast<uint32_t*>(&v);
+        }
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < AT_KT / 16; ++kk)
+        wgmma_m64n64_rs_tb(o, pa[kk], dv + (kk * 16 * 128 >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == AT_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // O / l into this warpgroup's (now free) Q half, in the swizzled
+    // layout the output tensor map expects, then one TMA store
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int rr = (tid / 32) * 16 + lane / 4 + 8 * r;
+      unsigned char* rowp = reinterpret_cast<unsigned char*>(Qh) + rr * 128;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(
+            o[4 * n + 2 * r] / l, o[4 * n + 2 * r + 1] / l);
+        *reinterpret_cast<__nv_bfloat162*>(
+            rowp + ((n ^ (rr % 8)) << 4) + 4 * (lane % 4)) = v;
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + cw, 128);
+    if (tid == 0 && q0 + 64 * cw < T)
+      tma_store_4d(&tmO, Qh, 0, q0 + 64 * cw, h, b);
+  }
+}
+
+// ------------------------------------------------------------ host ----
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
+// that the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map with rows of 64 elements (128 bytes, 128-byte
+// swizzle): dims and byte strides innermost first (dims[0] == 64), box
+// {64, box_rows, 1, ...}.  Elements outside dims load as zeros.
+cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
+                     const uint64_t* dims, const uint64_t* strides,
+                     uint32_t box_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  cuuint64_t d[4], s[3];
+  cuuint32_t box[4], es[4];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    box[i] = i == 0 ? 64 : (i == 1 ? box_rows : 1);
+    es[i] = 1;
+    if (i > 0) s[i - 1] = strides[i - 1];
+  }
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                         const_cast<void*>(base), d, s, box, es,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A row-major (rows, cols) bf16 matrix, cols % 64 == 0, box 64 x box_rows.
+cudaError_t matrix_map(CUtensorMap* map, const bf16* base, int rows,
+                       int cols, uint32_t box_rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols),
+                            static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(cols) * sizeof(bf16)};
+  return make_map(map, base, 2, dims, strides, box_rows);
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// out[M, N] = epi(pro(A)[M, K] . W[N, K]^T): the persistent wgmma GEMM,
+// 128 x 256 tiles where N allows, else 128 x 128.
+template <int PRO, int EPI>
+cudaError_t launch_wgmma_gemm(const bf16* A, const float2* stats,
+                              const float* gamma, const float* beta,
+                              const bf16* W, const float* bias,
+                              const bf16* resid, bf16* out, int M, int N,
+                              int K, cudaStream_t stream) {
+  const bool wide = N % 256 == 0;
+  const int tbn = wide ? 256 : 128;
+  CUtensorMap ta, tb;
+  cudaError_t e = matrix_map(&ta, A, M, K, WG_BM);
+  if (e == cudaSuccess) e = matrix_map(&tb, W, N, K, tbn);
+  if (e != cudaSuccess) return e;
+  const int tiles = (M + WG_BM - 1) / WG_BM * (N / tbn);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  if (wide) {
+    auto kern = wgmma_gemm_kernel<PRO, EPI, 256>;
+    const size_t smem = wg_gemm_smem<256>();
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kern<<<grid, WG_THREADS, smem, stream>>>(ta, tb, stats, gamma, beta,
+                                             bias, resid, out, M, N, K);
+  } else {
+    auto kern = wgmma_gemm_kernel<PRO, EPI, 128>;
+    const size_t smem = wg_gemm_smem<128>();
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kern<<<grid, WG_THREADS, smem, stream>>>(ta, tb, stats, gamma, beta,
+                                             bias, resid, out, M, N, K);
+  }
+  return cudaGetLastError();
+}
+
+// One attention operand as a 4-D tensor map (d = 64, token, head, batch)
+// from its (batch, head, token) element strides.
+cudaError_t attn_map(CUtensorMap* map, const void* base,
+                     const long long* st, int B, int T, int H) {
+  const uint64_t dims[4] = {64, static_cast<uint64_t>(T),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(st[2]) * sizeof(bf16),
+                               static_cast<uint64_t>(st[1]) * sizeof(bf16),
+                               static_cast<uint64_t>(st[0]) * sizeof(bf16)};
+  return make_map(map, base, 4, dims, strides, 64);
 }
 
 }  // namespace
@@ -475,10 +1099,10 @@ extern "C" int avl_ln_matmul(const void* x, const void* gamma,
   cudaError_t e = launch_stats(static_cast<const bf16*>(x),
                                static_cast<float2*>(stats), M, K, eps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_gemm<PRO_LN, EPI_BIAS>(
+  return static_cast<int>(launch_gemm<PRO_LN>(
       static_cast<const bf16*>(x), static_cast<const float2*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const bf16*>(w), static_cast<const float*>(bias), nullptr,
+      static_cast<const bf16*>(w), static_cast<const float*>(bias),
       static_cast<bf16*>(out), M, N, K, s));
 }
 
@@ -492,13 +1116,13 @@ extern "C" int avl_ln_mlp_residual(const void* x, const void* gamma,
   cudaError_t e = launch_stats(static_cast<const bf16*>(x),
                                static_cast<float2*>(stats), M, K, eps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm<PRO_LN, EPI_GELU>(
+  e = launch_wgmma_gemm<PRO_LN, EPI_GELU>(
       static_cast<const bf16*>(x), static_cast<const float2*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1), nullptr,
       static_cast<bf16*>(h), M, N1, K, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_gemm<PRO_NONE, EPI_RESID>(
+  return static_cast<int>(launch_wgmma_gemm<PRO_NONE, EPI_RESID>(
       static_cast<const bf16*>(h), nullptr, nullptr, nullptr,
       static_cast<const bf16*>(w2), static_cast<const float*>(b2),
       static_cast<const bf16*>(x), static_cast<bf16*>(out), M, K, N1, s));
@@ -508,27 +1132,28 @@ extern "C" int avl_ln_mlp_residual(const void* x, const void* gamma,
 extern "C" int avl_mha(const void* q, const void* k, const void* v,
                        void* out, const long long* strides, int B, int T,
                        int H, int t_real, float scale, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      mha_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(MHA_SMEM));
+  CUtensorMap tq, tk, tv, to;
+  cudaError_t e = attn_map(&tq, q, strides, B, T, H);
+  if (e == cudaSuccess) e = attn_map(&tk, k, strides + 3, B, T, H);
+  if (e == cudaSuccess) e = attn_map(&tv, v, strides + 6, B, T, H);
+  if (e == cudaSuccess) e = attn_map(&to, out, strides + 9, B, T, H);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(AT_SMEM));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Strides sq{strides[0], strides[1], strides[2]};
-  const Strides sk{strides[3], strides[4], strides[5]};
-  const Strides sv{strides[6], strides[7], strides[8]};
-  const Strides so{strides[9], strides[10], strides[11]};
-  dim3 grid((T + QT - 1) / QT, H, B);
-  mha_kernel<<<grid, MHA_THREADS, MHA_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, sk, sv, so, T,
-      t_real, scale);
+  dim3 grid((T + AT_QT - 1) / AT_QT, H, B);
+  attn_wgmma_kernel<<<grid, AT_THREADS, AT_SMEM,
+                      static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, to, T,
+                                                           t_real, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int avl_gelu_matmul(const void* x, const void* w,
                                const void* bias, void* out, int M, int N,
                                int K, void* stream) {
-  return static_cast<int>(launch_gemm<PRO_GELU, EPI_BIAS>(
+  return static_cast<int>(launch_gemm<PRO_GELU>(
       static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
-      static_cast<const bf16*>(w), static_cast<const float*>(bias), nullptr,
+      static_cast<const bf16*>(w), static_cast<const float*>(bias),
       static_cast<bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream)));
 }

@@ -33,6 +33,7 @@ from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from avlmaps_torch.geometry.grid import (base_pos_to_grid_id,
                                          out_of_range_mask, voxel_linear_id)
@@ -265,32 +266,36 @@ def make_frame_step_device_sampled(
              frame_ids: torch.Tensor,
              frame_valid: torch.Tensor) -> VoxelFusionState:
         b = canvas_u8.shape[0]
-        idx = device_sample_indices(frame_ids, seed=seed, max_pts=max_pts,
-                                    n_pixels=h * w)
-        dup = torch.zeros_like(idx, dtype=torch.bool)
-        dup[:, 1:] = idx[:, 1:] == idx[:, :-1]
-        z = torch.gather(depth_mm.reshape(b, -1), 1,
-                         idx).to(torch.float32) * 1e-3
-        sample_idx = idx.to(torch.int32)
-        vids, fx, fy, alpha, valid = geometry(z, sample_idx, pose)
-        valid = valid & ~dup & frame_valid[:, None]
+        with record_function("build.sample"):
+            idx = device_sample_indices(frame_ids, seed=seed,
+                                        max_pts=max_pts, n_pixels=h * w)
+            dup = torch.zeros_like(idx, dtype=torch.bool)
+            dup[:, 1:] = idx[:, 1:] == idx[:, :-1]
+            z = torch.gather(depth_mm.reshape(b, -1), 1,
+                             idx).to(torch.float32) * 1e-3
+            sample_idx = idx.to(torch.int32)
+            vids, fx, fy, alpha, valid = geometry(z, sample_idx, pose)
+            valid = valid & ~dup & frame_valid[:, None]
 
-        canvas = canvas_u8.to(torch.float32) * (1.0 / 127.5) - 1.0
-        feats = _canvas_features(lseg_apply, lseg_eval, canvas, fx, fy,
-                                 base_size, crop_size, half_res_apply)
+        with record_function("build.lseg"):
+            canvas = canvas_u8.to(torch.float32) * (1.0 / 127.5) - 1.0
+            feats = _canvas_features(lseg_apply, lseg_eval, canvas, fx, fy,
+                                     base_size, crop_size, half_res_apply)
 
-        # colour from the canvas at the scaled source pixel (nearest)
-        cx = torch.clamp(torch.round((idx % w).to(torch.float32) * sx),
-                         0, cw - 1).long()
-        cy = torch.clamp(torch.round((idx // w).to(torch.float32) * sy),
-                         0, ch - 1).long()
-        rgbs = torch.gather(canvas_u8.reshape(b, -1, 3), 1,
-                            (cy * cw + cx)[..., None].expand(-1, -1, 3))
+        with record_function("build.colour"):
+            # colour from the canvas at the scaled source pixel (nearest)
+            cx = torch.clamp(torch.round((idx % w).to(torch.float32) * sx),
+                             0, cw - 1).long()
+            cy = torch.clamp(torch.round((idx // w).to(torch.float32) * sy),
+                             0, ch - 1).long()
+            rgbs = torch.gather(canvas_u8.reshape(b, -1, 3), 1,
+                                (cy * cw + cx)[..., None].expand(-1, -1, 3))
         d = feats.shape[-1]
-        return fuse_points(
-            state, vids.reshape(-1), feats.reshape(-1, d),
-            rgbs.to(torch.float32).reshape(-1, 3), alpha.reshape(-1),
-            valid.reshape(-1), gs=gs, vh=vh, dedup_scatter=dedup_scatter)
+        with record_function("build.fuse"):
+            return fuse_points(
+                state, vids.reshape(-1), feats.reshape(-1, d),
+                rgbs.to(torch.float32).reshape(-1, 3), alpha.reshape(-1),
+                valid.reshape(-1), gs=gs, vh=vh, dedup_scatter=dedup_scatter)
 
     return step
 

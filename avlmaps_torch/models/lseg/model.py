@@ -15,6 +15,7 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from avlmaps_torch.models.lseg.dpt import DPTDecoder, conv
 from avlmaps_torch.models.lseg.vit import DenseViT, DenseViTConfig
@@ -98,12 +99,15 @@ class LSegNet(nn.Module):
         cfg = self.cfg
         _, h, w, _ = images.shape
         gh, gw = h // cfg.vit.patch_size, w // cfg.vit.patch_size
-        taps = self.backbone(images)
-        path = self.decoder(taps, gh, gw)
-        feats = conv(path, self.head1, cfg.dtype).float()
-        norm = torch.linalg.vector_norm(feats, dim=1, keepdim=True)
-        feats = feats / torch.clamp(norm, min=1e-12) * LOGIT_SCALE
-        feats = feats.permute(0, 2, 3, 1).contiguous()  # NHWC
+        with record_function("lseg.vit"):
+            taps = self.backbone(images)
+        with record_function("lseg.dpt"):
+            path = self.decoder(taps, gh, gw)
+        with record_function("lseg.head"):
+            feats = conv(path, self.head1, cfg.dtype).float()
+            norm = torch.linalg.vector_norm(feats, dim=1, keepdim=True)
+            feats = feats / torch.clamp(norm, min=1e-12) * LOGIT_SCALE
+            feats = feats.permute(0, 2, 3, 1).contiguous()  # NHWC
         if not upsample:
             if cfg.dtype == torch.bfloat16:
                 return feats.to(torch.bfloat16)

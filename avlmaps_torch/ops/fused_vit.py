@@ -16,6 +16,9 @@ the ``torch.nn.Linear`` layout ``(out_features, in_features)``.
   the qkv matrix; keys at or beyond ``t_real`` are masked.  ``mha_bhtd``
   runs the same kernel on (B, H, T, D) tensors, the layout of the JAX
   package's flash/splash attention (``models/lseg/vit.py``), with no pad.
+  The kernel reads its operands through TMA tensor maps built from the
+  (batch, head, token) strides, so rows must be 16-byte aligned and the
+  strides multiples of 8 elements.
 - ``ln_mlp_residual`` (K3): ``x + GELU(LN(x) @ w1.T + b1) @ w2.T + b2``
   with exact-erf GELU; the GELU output is rounded to the weight dtype
   before the second product, as on the TPU.  Weights over 24 MiB take
@@ -294,7 +297,8 @@ def ln_mlp_residual(x2d: torch.Tensor, ln_scale: torch.Tensor,
 
     x2d: (M, K); w1: (N1, K); w2: (K, N1).  On CUDA: bf16, K a multiple of
     256 up to 1024, N1 a multiple of 128; the kernel pair writes the
-    (M, N1) bf16 GELU output to a scratch buffer between its launches.
+    (M, N1) bf16 GELU output to a scratch buffer between its two wgmma
+    GEMM launches.
     Weights over 24 MiB take ``ln_matmul`` -> ``gelu_matmul`` -> residual
     add, each rounded to x's dtype, as the JAX package does."""
     wbytes = (w1.numel() + w2.numel()) * w1.element_size()

@@ -167,6 +167,94 @@ def compare(name: str, got, want, atol: float, rtol: float) -> float:
     return max_abs
 
 
+# bf16 outputs: two bf16 ulps of the plain value plus 1e-2 for elements
+# near zero (both sides round once from f32 sums taken in different
+# orders)
+BF_ATOL, BF_RTOL = 1e-2, 2.0 ** -6
+# the attention output is an average over ~900 unit-variance values (std
+# ~0.05), so its floor is 4e-3, twice the largest error measured at this
+# shape: a kernel that lost the last partial key tile (keys 896-900) moves
+# typical outputs by more than that.  The kernel's exp2 with scale * log2 e
+# folded in moves p by a few f32 ulps, far inside it.
+K2_ATOL = 4e-3
+
+
+def _randn(g, *shape, std=1.0, dtype=None):
+    import torch
+
+    return (torch.randn(shape, generator=g, device="cuda") * std).to(
+        dtype or torch.bfloat16)
+
+
+def k2_case(g, nb: int, t: int):
+    """K2 (mha_oneshot_2d) on a random (nb*t, 3W) qkv matrix against its
+    plain version, timed beside SDPA; returns its kernel-table row and the
+    qkv matrix."""
+    import torch.nn.functional as F
+
+    from avlmaps_torch.ops import fused_vit as fv
+
+    m = nb * t
+    qkv = _randn(g, m, 3 * WIDTH)
+    scale = 1.0 / math.sqrt(WIDTH // HEADS)
+    k2 = lambda: fv.mha_oneshot_2d(qkv, nb, t, HEADS, scale=scale)  # noqa: E731
+    p2 = lambda: fv.mha_oneshot_2d_ref(qkv, nb, t, HEADS, scale=scale)  # noqa: E731
+
+    def lib2():
+        q, k, v = qkv.view(nb, t, 3, HEADS, WIDTH // HEADS).permute(
+            2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    err = compare(f"K2 mha_oneshot_2d ({nb}, {HEADS}, {t}, 64)", k2(), p2(),
+                  K2_ATOL, BF_RTOL)
+    b_ms, b_by = bound(4 * nb * t * t * WIDTH, 2 * (m * 3 * WIDTH + m * WIDTH),
+                       PEAK_BF16)
+    return dict(name="mha_oneshot_2d", fn=fv.mha_oneshot_2d, route="cuda",
+                source="avlmaps_torch/csrc/fused_vit.cu",
+                replaces="avlmaps_tpu/ops/fused_vit.py:149",
+                max_abs_err=err, ms=time_ms(k2), plain_ms=time_ms(p2, 3),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lib2)), qkv
+
+
+def k3_case(g, m: int):
+    """K3 (ln_mlp_residual) on M random rows at ViT-L width against its
+    plain version, timed beside LN + two F.linear + GELU; returns its
+    kernel-table row."""
+    import torch
+    import torch.nn.functional as F
+
+    from avlmaps_torch.ops import fused_vit as fv
+
+    eps = 1e-6
+    x = _randn(g, m, WIDTH)
+    gam = 1.0 + _randn(g, WIDTH, std=0.1, dtype=torch.float32)
+    bet = _randn(g, WIDTH, std=0.1, dtype=torch.float32)
+    w1 = _randn(g, MLP, WIDTH, std=WIDTH ** -0.5)
+    b1 = _randn(g, MLP, std=0.1, dtype=torch.float32)
+    w2 = _randn(g, WIDTH, MLP, std=MLP ** -0.5)
+    b2 = _randn(g, WIDTH, std=0.1, dtype=torch.float32)
+    k3 = lambda: fv.ln_mlp_residual(x, gam, bet, w1, b1, w2, b2, eps=eps)  # noqa: E731
+    p3 = lambda: fv.ln_mlp_residual_ref(x, gam, bet, w1, b1, w2, b2,  # noqa: E731
+                                        eps=eps)
+
+    def lib3():
+        h = F.layer_norm(x, (WIDTH,), gam.to(x.dtype), bet.to(x.dtype), eps)
+        h = F.gelu(F.linear(h, w1, b1.to(x.dtype)))
+        return x + F.linear(h, w2, b2.to(x.dtype))
+
+    err = compare(f"K3 ln_mlp_residual (M={m})", k3(), p3(), BF_ATOL,
+                  BF_RTOL)
+    b_ms, b_by = bound(4 * m * WIDTH * MLP,
+                       2 * (2 * m * WIDTH + 2 * WIDTH * MLP)
+                       + 4 * (3 * WIDTH + MLP), PEAK_BF16)
+    return dict(name="ln_mlp_residual", fn=fv.ln_mlp_residual, route="cuda",
+                source="avlmaps_torch/csrc/fused_vit.cu",
+                replaces="avlmaps_tpu/ops/fused_vit.py:321",
+                max_abs_err=err, ms=time_ms(k3), plain_ms=time_ms(p3, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib3))
+
+
 def kernel_checks():
     """K1-K4 at main-path shapes against their plain versions."""
     import torch
@@ -179,29 +267,22 @@ def kernel_checks():
     g = torch.Generator(device=dev)
     g.manual_seed(0)
 
-    def randn(*shape, std=1.0, dtype=torch.bfloat16):
-        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
-
     m = BATCH * CROPS * T
     eps = 1e-6
-    x = randn(m, WIDTH)
-    gam = 1.0 + randn(WIDTH, std=0.1, dtype=torch.float32)
-    bet = randn(WIDTH, std=0.1, dtype=torch.float32)
+    x = _randn(g, m, WIDTH)
+    gam = 1.0 + _randn(g, WIDTH, std=0.1, dtype=torch.float32)
+    bet = _randn(g, WIDTH, std=0.1, dtype=torch.float32)
     rows = []
-    # bf16 outputs: two bf16 ulps of the plain value plus 1e-2 for
-    # elements near zero (both sides round once from f32 sums taken in
-    # different orders)
-    bf_atol, bf_rtol = 1e-2, 2.0 ** -6
 
     # K1: LN -> qkv
-    wq = randn(3 * WIDTH, WIDTH, std=WIDTH ** -0.5)
-    bq = randn(3 * WIDTH, std=0.1, dtype=torch.float32)
+    wq = _randn(g, 3 * WIDTH, WIDTH, std=WIDTH ** -0.5)
+    bq = _randn(g, 3 * WIDTH, std=0.1, dtype=torch.float32)
     k1 = lambda: fv.ln_matmul(x, gam, bet, wq, bq, eps=eps)  # noqa: E731
     p1 = lambda: fv.ln_matmul_ref(x, gam, bet, wq, bq, eps=eps)  # noqa: E731
     lib1 = lambda: F.linear(F.layer_norm(x, (WIDTH,), gam.to(x.dtype),  # noqa: E731
                                          bet.to(x.dtype), eps), wq,
                             bq.to(x.dtype))
-    err = compare("K1 ln_matmul", k1(), p1(), bf_atol, bf_rtol)
+    err = compare("K1 ln_matmul", k1(), p1(), BF_ATOL, BF_RTOL)
     b_ms, b_by = bound(2 * m * WIDTH * 3 * WIDTH,
                        2 * (m * WIDTH + 3 * WIDTH * WIDTH + m * 3 * WIDTH)
                        + 4 * (2 * WIDTH + 3 * WIDTH), PEAK_BF16)
@@ -213,66 +294,24 @@ def kernel_checks():
 
     # K2: attention on the fused qkv matrix (plus a masked-key check)
     nb = BATCH * CROPS
-    qkv = randn(m, 3 * WIDTH)
+    row, qkv = k2_case(g, nb, T)
     scale = 1.0 / math.sqrt(WIDTH // HEADS)
-    k2 = lambda: fv.mha_oneshot_2d(qkv, nb, T, HEADS, scale=scale)  # noqa: E731
-    p2 = lambda: fv.mha_oneshot_2d_ref(qkv, nb, T, HEADS, scale=scale)  # noqa: E731
-
-    def lib2():
-        q, k, v = qkv.view(nb, T, 3, HEADS, WIDTH // HEADS).permute(
-            2, 0, 3, 1, 4)
-        return F.scaled_dot_product_attention(q, k, v, scale=scale)
-
-    # the attention output is an average over ~900 unit-variance values
-    # (std ~0.05), so its floor is 4e-3, twice the largest error measured
-    # at this shape: a kernel that lost the last partial key tile (keys
-    # 896-900) moves typical outputs by more than that
-    k2_atol = 4e-3
-    full = k2()
-    err = compare("K2 mha_oneshot_2d", full, p2(), k2_atol, bf_rtol)
+    full = fv.mha_oneshot_2d(qkv, nb, T, HEADS, scale=scale)
     # t_real=832 masks keys 832-900: a whole 64-key tile and a partial one
     masked = fv.mha_oneshot_2d(qkv, nb, T, HEADS, scale=scale, t_real=832)
     compare("K2 mha_oneshot_2d t_real=832", masked,
             fv.mha_oneshot_2d_ref(qkv, nb, T, HEADS, scale=scale,
-                                  t_real=832), k2_atol, bf_rtol)
+                                  t_real=832), K2_ATOL, BF_RTOL)
     moved = float((masked.float() - full.float()).abs().max())
     print(f"  K2 mask moves the output by up to {moved:.3e}")
-    if moved <= 4 * k2_atol:
+    if moved <= 4 * K2_ATOL:
         raise AssertionError("K2: masking keys 832-900 barely moved the "
                              "output; the check could not see the mask")
-    del full, masked
-    b_ms, b_by = bound(4 * nb * T * T * WIDTH, 2 * (m * 3 * WIDTH + m * WIDTH),
-                       PEAK_BF16)
-    rows.append(dict(name="mha_oneshot_2d", fn=fv.mha_oneshot_2d, route="cuda",
-                     source="avlmaps_torch/csrc/fused_vit.cu",
-                     replaces="avlmaps_tpu/ops/fused_vit.py:149",
-                     max_abs_err=err, ms=time_ms(k2), plain_ms=time_ms(p2, 3),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib2)))
+    del full, masked, qkv
+    rows.append(row)
 
     # K3: LN -> fc -> GELU -> proj + residual
-    w1 = randn(MLP, WIDTH, std=WIDTH ** -0.5)
-    b1 = randn(MLP, std=0.1, dtype=torch.float32)
-    w2 = randn(WIDTH, MLP, std=MLP ** -0.5)
-    b2 = randn(WIDTH, std=0.1, dtype=torch.float32)
-    k3 = lambda: fv.ln_mlp_residual(x, gam, bet, w1, b1, w2, b2, eps=eps)  # noqa: E731
-    p3 = lambda: fv.ln_mlp_residual_ref(x, gam, bet, w1, b1, w2, b2,  # noqa: E731
-                                        eps=eps)
-
-    def lib3():
-        h = F.layer_norm(x, (WIDTH,), gam.to(x.dtype), bet.to(x.dtype), eps)
-        h = F.gelu(F.linear(h, w1, b1.to(x.dtype)))
-        return x + F.linear(h, w2, b2.to(x.dtype))
-
-    err = compare("K3 ln_mlp_residual", k3(), p3(), bf_atol, bf_rtol)
-    b_ms, b_by = bound(4 * m * WIDTH * MLP,
-                       2 * (2 * m * WIDTH + 2 * WIDTH * MLP)
-                       + 4 * (3 * WIDTH + MLP), PEAK_BF16)
-    rows.append(dict(name="ln_mlp_residual", fn=fv.ln_mlp_residual,
-                     route="cuda",
-                     source="avlmaps_torch/csrc/fused_vit.cu",
-                     replaces="avlmaps_tpu/ops/fused_vit.py:321",
-                     max_abs_err=err, ms=time_ms(k3), plain_ms=time_ms(p3, 3),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib3)))
+    rows.append(k3_case(g, m))
 
     # K4: sorted segment scatter-add into the (1e6+1, 640) accumulator.
     # Rows as fuse_points hands them over: f32 features (the crop average
@@ -281,9 +320,9 @@ def kernel_checks():
     slots = torch.sort(torch.randint(0, 6000, (b,), generator=g,
                                      device=dev))[0].to(torch.int32)
     slots[-b // 20:] = CAPACITY
-    feats = randn(b, FEAT, dtype=torch.float32)
+    feats = _randn(g, b, FEAT, dtype=torch.float32)
     w = torch.rand(b, generator=g, device=dev)
-    aux = randn(b, ACCUM_W - FEAT, dtype=torch.float32)
+    aux = _randn(g, b, ACCUM_W - FEAT, dtype=torch.float32)
     base = torch.zeros(CAPACITY + 1, ACCUM_W, device=dev)
     got = ss.sorted_segment_scatter_add_split(base.clone(), slots, feats, w,
                                               aux)
@@ -456,14 +495,20 @@ def write_scene(root: Path, n: int, seed: int, h: int = 720,
     return root
 
 
-PORT_KERNELS = ("gemm_kernel", "ln_stats_kernel", "mha_kernel",
-                "segment_scatter_kernel")
+PORT_KERNELS = ("wgmma_gemm_kernel", "gemm_kernel", "ln_stats_kernel",
+                "attn_wgmma_kernel", "segment_scatter_kernel")
+# the port's record_function ranges on the build path; the profiler also
+# lists each range among the device events (an annotation spanning its
+# kernels), so device totals leave them out
+BUILD_RANGES = ("build.", "lseg.")
 
 
-def profile_build(b, steps: int) -> float:
+def profile_build(b, steps: int, attribute: bool = False) -> float:
     """Device time by kernel over a short build (torch.profiler).  Returns
     the device ms per step: every kernel and copy of the build except the
-    export's device->host copies, over the steps."""
+    export's device->host copies, over the steps.  With ``attribute``,
+    also prints the torch ops by the device time of the kernels they
+    launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -472,7 +517,8 @@ def profile_build(b, steps: int) -> float:
         b.create_mobile_base_map(save_every=0, progress=False)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(BUILD_RANGES)]
     step_ms = sum(e.self_device_time_total for e in kernels
                   if "DtoH" not in e.key) / 1e3 / steps
     print(f"  profiled {steps}-step build: device busy {step_ms:.3f} ms per "
@@ -487,7 +533,46 @@ def profile_build(b, steps: int) -> float:
             print(f"    port kernel {name}: {e.count}x, "
                   f"{e.self_device_time_total / 1e3 / e.count:.4f} ms each "
                   f"({e.key[:60]})")
+    if attribute:
+        attribute_ops(prof, steps)
     return step_ms
+
+
+def attribute_ops(prof, steps: int, top: int = 16) -> None:
+    """The torch ops that launch the build's kernels, by the device time
+    of those kernels (device->host copies excluded), each with the port's
+    ``build.*`` / ``lseg.*`` ranges around it, innermost first.  The port's
+    own kernels go through ctypes and belong to no torch op."""
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    sites = {}
+    for e in prof.events():
+        if e.device_type != cpu:
+            continue
+        t = sum(k.duration for k in e.kernels if "DtoH" not in k.name)
+        if t <= 0:
+            continue
+        ranges, p = [], e.cpu_parent
+        while p is not None:
+            if p.name.startswith(BUILD_RANGES):
+                ranges.append(p.name)
+            p = p.cpu_parent
+        key = (e.name, " < ".join(ranges) or "-")
+        tt, n = sites.get(key, (0.0, 0))
+        sites[key] = (tt + t, n + 1)
+    by_range = {}
+    for (_, rng), (t, _) in sites.items():
+        by_range[rng] = by_range.get(rng, 0.0) + t
+    total = sum(by_range.values()) / 1e3 / steps
+    print(f"  torch ops' kernels: {total:.3f} ms per step; by range: "
+          + ", ".join(f"{r} {t / 1e3 / steps:.3f}" for r, t in
+                      sorted(by_range.items(), key=lambda kv: -kv[1])))
+    print(f"  top {top} torch ops by their kernels' device time:")
+    for (name, rng), (t, n) in sorted(sites.items(),
+                                      key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {t / 1e3 / steps:8.3f} ms/step {n / steps:7.1f}x/step  "
+              f"{name[:30]}  in {rng}")
 
 
 def time_producer(scene: Path, mc, n_frames: int) -> float:
@@ -651,24 +736,18 @@ def vit_kernel_checks():
 
     from avlmaps_torch.ops import fused_vit as fv
 
-    dev = "cuda"
-    g = torch.Generator(device=dev)
+    g = torch.Generator(device="cuda")
     g.manual_seed(5)
-
-    def randn(*shape, std=1.0, dtype=torch.bfloat16):
-        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
-
-    bf_atol, bf_rtol = 1e-2, 2.0 ** -6
     m = BATCH * CROPS * T
     rows = []
     # K6: GELU(fc output) -> proj, the unfused MLP's second product
-    x = randn(m, MLP)
-    w = randn(WIDTH, MLP, std=MLP ** -0.5)
-    b = randn(WIDTH, std=0.1, dtype=torch.float32)
+    x = _randn(g, m, MLP)
+    w = _randn(g, WIDTH, MLP, std=MLP ** -0.5)
+    b = _randn(g, WIDTH, std=0.1, dtype=torch.float32)
     k6 = lambda: fv.gelu_matmul(x, w, b)  # noqa: E731
     p6 = lambda: fv.gelu_matmul_ref(x, w, b)  # noqa: E731
     lib6 = lambda: F.linear(F.gelu(x), w, b.to(x.dtype))  # noqa: E731
-    err = compare("K6 gelu_matmul", k6(), p6(), bf_atol, bf_rtol)
+    err = compare("K6 gelu_matmul", k6(), p6(), BF_ATOL, BF_RTOL)
     b_ms, b_by = bound(2 * m * MLP * WIDTH,
                        2 * (m * MLP + WIDTH * MLP + m * WIDTH) + 4 * WIDTH,
                        PEAK_BF16)
@@ -681,19 +760,18 @@ def vit_kernel_checks():
 
     # K2 on (B, H, T, D): the flash/splash layout, 8 crops x 16 heads
     nb, hd = BATCH * CROPS, WIDTH // HEADS
-    q, k, v = (randn(nb, HEADS, T, hd) for _ in range(3))
+    q, k, v = (_randn(g, nb, HEADS, T, hd) for _ in range(3))
     scale = 1.0 / math.sqrt(hd)
     k2 = lambda: fv.mha_bhtd(q, k, v, scale=scale)  # noqa: E731
     p2 = lambda: fv.mha_bhtd_ref(q, k, v, scale=scale)  # noqa: E731
     lib2 = lambda: F.scaled_dot_product_attention(q, k, v,  # noqa: E731
                                                   scale=scale)
-    # the K2 check's floor: outputs average ~900 unit-variance values
-    err = compare("K2 mha_bhtd (B, H, T, D)", k2(), p2(), 4e-3, bf_rtol)
-    qkv = randn(nb, T, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
+    err = compare("K2 mha_bhtd (B, H, T, D)", k2(), p2(), K2_ATOL, BF_RTOL)
+    qkv = _randn(g, nb, T, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
     compare("K2 mha_bhtd on strided head-split views",
             fv.mha_bhtd(qkv[0], qkv[1], qkv[2], scale=scale, t_real=832),
             fv.mha_bhtd_ref(qkv[0], qkv[1], qkv[2], scale=scale,
-                            t_real=832), 4e-3, bf_rtol)
+                            t_real=832), K2_ATOL, BF_RTOL)
     b_ms, b_by = bound(4 * nb * HEADS * T * T * hd,
                        2 * 4 * nb * HEADS * T * hd, PEAK_BF16)
     rows.append(dict(name="mha_bhtd", fn=fv.mha_bhtd, route="cuda",
@@ -746,7 +824,8 @@ def _counts(rows):
     return {r["name"]: r["fn"].launches for r in rows}
 
 
-def _measured_build(name, make, rows, steps, producer_loader):
+def _measured_build(name, make, rows, steps, producer_loader,
+                    attribute=False):
     """One timed build (after a warm one), its launch counts, a profile of
     a second build and the producer alone; prints the step numbers."""
     import torch
@@ -770,7 +849,7 @@ def _measured_build(name, make, rows, steps, producer_loader):
     wall = time.perf_counter() - t0
     counts = _counts(rows)
     stats = b.build_stats
-    device_ms = profile_build(make(), steps)
+    device_ms = profile_build(make(), steps, attribute)
     producer = producer_ms(producer_loader())
     step_ms = (loop_end[-1] - t0) * 1e3 / steps
     enqueue_ms = 1e3 * THR_BATCH / stats["fps"]
@@ -822,6 +901,10 @@ def throughput_run(net, tmp: Path, k5_row, path_rows):
             captured.extend(a.clone() for a in args)
         return fuse(state, *args, **kw)
 
+    # ... and the token count the ViT sees on the padded canvas
+    seen = []
+    hook = net.backbone.blocks[0].register_forward_pre_hook(
+        lambda mod, args: seen.append(tuple(args[0].shape)))
     vb.fuse_points = capture
     try:
         _builder(net, mc, tfs, warm, THR_BATCH,
@@ -829,6 +912,12 @@ def throughput_run(net, tmp: Path, k5_row, path_rows):
             save_every=0, progress=False)
     finally:
         vb.fuse_points = fuse
+        hook.remove()
+    thr_t = seen[0][1]
+    print(f"  the ViT sees (batch, tokens, width) = {seen[0]} on the padded "
+          f"canvas: M = {seen[0][0] * thr_t} token rows")
+    if seen[0] != (THR_BATCH, thr_t, WIDTH):
+        raise AssertionError(f"unexpected ViT input {seen[0]}")
     if captured[0].shape != (THR_POINTS,):
         raise AssertionError(f"captured batch {captured[0].shape}")
 
@@ -867,7 +956,8 @@ def throughput_run(net, tmp: Path, k5_row, path_rows):
         lambda: _builder(net, mc, tfs, scene, THR_BATCH, sampling="device"),
         rows, steps,
         lambda: PackedLoader(pk, poses, batch_size=THR_BATCH,
-                             raw_canvas=True, device="cuda"))
+                             raw_canvas=True, device="cuda"),
+        attribute=True)
     k5_row["launches"] = counts["sorted_segment_scatter_add"]
     want = {"ln_matmul": LAYERS * steps, "mha_oneshot_2d": LAYERS * steps,
             "ln_mlp_residual": LAYERS * steps,
@@ -889,7 +979,29 @@ def throughput_run(net, tmp: Path, k5_row, path_rows):
                                  n_pts, nb), device="cuda"))
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
-    return captured
+    return captured, thr_t, want
+
+
+def throughput_shape_checks(thr_t: int, launches: dict):
+    """K3 and K2 at the throughput build's shapes (batch 16 whole canvas:
+    M = 16 * thr_t rows, attention on (16, 16, thr_t, 64)) against their
+    plain versions, with times, bounds and library times; the launches are
+    the throughput build's."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    out = [k3_case(g, THR_BATCH * thr_t), k2_case(g, THR_BATCH, thr_t)[0]]
+    for r in out:
+        r["launches"] = launches[r["name"]]
+        r["shape"] = (f"M={THR_BATCH * thr_t}" if r["name"] == "ln_mlp_residual"
+                      else f"({THR_BATCH}, {HEADS}, {thr_t}, 64)")
+        print(f"  {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['launches']} launches in the throughput build")
+    torch.cuda.empty_cache()
+    return out
 
 
 def k5_check(captured, k5_row):
@@ -1387,7 +1499,7 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 print(f"  {name}: {line.strip()}")
 
     print("kernel checks (4 frames = 8 crops, M=7208; 31104 points):")
@@ -1409,7 +1521,12 @@ def main() -> int:
         scene, net = slice_run(rows[:4], Path(tmp))
         print("slice 3: throughput build, 64 packed 720x1080 frames, device "
               "sampling, whole canvas, batch 16:")
-        captured = throughput_run(net, Path(tmp), k5_row, rows[:4])
+        captured, thr_t, thr_launches = throughput_run(net, Path(tmp),
+                                                      k5_row, rows[:4])
+        print(f"slice 4: K3 and K2 at the throughput build's shapes "
+              f"(M={THR_BATCH * thr_t}; ({THR_BATCH}, {HEADS}, {thr_t}, "
+              "64)):")
+        thr_rows = throughput_shape_checks(thr_t, thr_launches)
         print("slice 3: K5 on a real batch-16 step (B=124,416, W=640, "
               "S=1e6+1):")
         k5_check(captured, k5_row)
@@ -1441,6 +1558,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{k: r[k] for k in keys} for r in rows + [k5_row] + vit_rows]
+    print(json.dumps({"throughput_shapes": [
+        {k: r[k] for k in ("shape",) + keys} for r in thr_rows]}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-SOURCES = sorted((REPO / "avlmaps_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+PACKAGE = sorted((REPO / "avlmaps_torch").rglob("*.py"))
+SOURCES = PACKAGE + [REPO / "chip_smoke.py"] + sorted(
+    (REPO / "probes").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "avlmaps_tpu", "tools")
 
 
@@ -31,7 +32,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_sources_cover_the_package():
     names = {p.relative_to(REPO / "avlmaps_torch").as_posix()
-             for p in SOURCES[:-1]}
+             for p in PACKAGE}
     assert {"map/vlmap_builder.py", "ops/fused_vit.py",
             "ops/segment_scatter.py", "ops/voxel_fusion.py",
             "models/lseg/vit.py", "kernels/build.py",
@@ -129,7 +130,7 @@ def test_kernels_build_lazily():
 
 def test_slice_3_modules_are_scanned():
     names = {p.relative_to(REPO / "avlmaps_torch").as_posix()
-             for p in SOURCES[:-1]}
+             for p in PACKAGE}
     assert {"utils/threefry.py", "pipeline/packed.py",
             "pipeline/transport.py", "pipeline/loader.py"} <= names
 
