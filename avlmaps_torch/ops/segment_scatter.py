@@ -127,8 +127,12 @@ def split_kernel(accum: torch.Tensor, slots: torch.Tensor,
     _require(d % 32 == 0 and wd % 32 == 0 and wd <= 1024,
              f"{name}: the split kernel needs d, W multiples of 32 and "
              f"W <= 1024, got d={d}, W={wd}")
+    # ``start`` must outlive the call: a temporary would go back to the
+    # caching allocator before the launch, and another thread's allocation
+    # could take its block and overwrite the flags ahead of the kernel
+    start = _run_starts(slots)
     rc = _lib().avl_segment_scatter_add_split(
-        accum.data_ptr(), slots.data_ptr(), _run_starts(slots).data_ptr(),
+        accum.data_ptr(), slots.data_ptr(), start.data_ptr(),
         feats.data_ptr(), int(feats.dtype == torch.bfloat16), w.data_ptr(),
         aux.data_ptr(), b, d, wd, _skip_slot(s),
         torch.cuda.current_stream().cuda_stream)
@@ -201,8 +205,9 @@ def sorted_segment_scatter_add(accum: torch.Tensor, slots: torch.Tensor,
     updates = updates.float().contiguous()
     _check_cuda(name, accum, slots, updates)
     _require(updates.shape == (b, wd), f"{name}: shape mismatch")
+    start = _run_starts(slots)  # held across the launch, as in K4
     rc = _lib().avl_segment_scatter_add(
-        accum.data_ptr(), slots.data_ptr(), _run_starts(slots).data_ptr(),
+        accum.data_ptr(), slots.data_ptr(), start.data_ptr(),
         updates.data_ptr(), b, wd, _skip_slot(s),
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -166,6 +166,62 @@ def test_assembled_kernel_matches_plain_and_split_bitwise(gen, rows):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
+class _AllocatingLib:
+    """The kernel library with one launch function wrapped: just before it
+    forwards, the wrapper allocates ``torch.zeros`` of the run-start
+    mask's size on the launch's stream -- as the loader's producer thread
+    may between the wrapper's allocation and the launch -- until one of
+    them overlaps the mask (up to 16).  A mask freed before the launch is
+    then zeroed ahead of the kernel; a held one cannot be overlapped."""
+
+    def __init__(self, lib, name: str, n_rows: int):
+        self._lib, self._name, self._n = lib, name, n_rows
+        self.overlapped = False
+        self.held = []
+
+    def __getattr__(self, attr):
+        fn = getattr(self._lib, attr)
+        if attr != self._name:
+            return fn
+
+        def launch(*args):
+            mask = args[2]  # (accum, slots, start, ...)
+            for _ in range(16):
+                z = torch.zeros(self._n, dtype=torch.uint8, device="cuda")
+                self.held.append(z)
+                p = z.data_ptr()
+                if p < mask + self._n and mask < p + self._n:
+                    self.overlapped = True
+                    break
+            return fn(*args)
+
+        return launch
+
+
+@pytest.mark.parametrize("kernel", ["split", "assembled"])
+def test_run_start_mask_outlives_the_launch(gen, monkeypatch, kernel):
+    """K4 and K5 with an allocation between the wrapper's mask and the
+    launch: the kernels must still read the mask's run starts."""
+    b, cap, d = 3000, 5000, 512
+    slots, feats, w, aux = _sorted_batch(gen, b, cap, d, 128)
+    base = torch.randn(cap + 1, d + 128, generator=gen, device="cuda")
+    want = ss.sorted_segment_scatter_add_split_ref(base.clone(), slots,
+                                                   feats, w, aux)
+    name = ("avl_segment_scatter_add_split" if kernel == "split"
+            else "avl_segment_scatter_add")
+    lib = _AllocatingLib(ss._lib(), name, b)
+    monkeypatch.setattr(ss, "_lib", lambda: lib)
+    if kernel == "split":
+        got = ss.split_kernel(base.clone(), slots, feats, w, aux)
+    else:
+        got = ss.sorted_segment_scatter_add(
+            base.clone(), slots, torch.cat([w[:, None] * feats, aux], 1))
+    torch.cuda.synchronize()
+    assert lib.held, "the launch did not go through the wrapped library"
+    torch.testing.assert_close(got[:cap], want[:cap], atol=1e-4, rtol=1e-5)
+    assert not lib.overlapped, "an allocation overlapped the mask"
+
+
 @pytest.mark.parametrize("wd", [640, 2100])
 def test_assembled_kernel_widths(gen, wd):
     """Rows wider than one 1024-column chunk loop over chunks."""

@@ -30,6 +30,36 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def _unheld_pointers(path: Path):
+    """Lines where ``.data_ptr()`` is taken of a call's result, e.g.
+    ``f(x).data_ptr()`` or ``x.contiguous().data_ptr()``: no name holds
+    that tensor, so it can be freed before the kernel that reads the
+    pointer is on the stream."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "data_ptr"
+                and isinstance(node.func.value, ast.Call)):
+            yield node.lineno
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(REPO)) for p in SOURCES])
+def test_kernel_pointers_come_from_held_tensors(path):
+    bad = list(_unheld_pointers(path))
+    assert not bad, (f"{path.relative_to(REPO)}:{bad} passes the pointer "
+                     "of a temporary tensor; bind it to a name that lives "
+                     "until the launch has returned")
+
+
+def test_unheld_pointer_scan_finds_the_pattern(tmp_path):
+    src = tmp_path / "launch.py"
+    src.write_text("lib.f(a.data_ptr(), g(s).data_ptr(),\n"
+                   "      x.contiguous().data_ptr())\n")
+    assert list(_unheld_pointers(src)) == [1, 2]
+
+
 def test_sources_cover_the_package():
     names = {p.relative_to(REPO / "avlmaps_torch").as_posix()
              for p in PACKAGE}
