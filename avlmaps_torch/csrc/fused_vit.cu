@@ -75,23 +75,12 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 #include <math.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
-
-constexpr int BM = 64;             // GEMM block rows
-constexpr int BN = 128;            // GEMM block cols
-constexpr int BK = 32;             // K slice per pipeline stage
-constexpr int PAD = 8;             // bf16 row padding against bank conflicts
-constexpr int LDB = BK + PAD;      // stage row stride (elements)
-constexpr int LDC = BN + 4;        // f32 epilogue tile row stride
-constexpr int STAGES = 3;          // cp.async ring depth
-constexpr int GEMM_THREADS = 256;  // 8 warps: 2 (rows) x 4 (cols), 32x32 each
 
 enum { PRO_NONE = 0, PRO_LN = 1, PRO_GELU = 2 };
 enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESID = 2 };
@@ -100,21 +89,12 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+// (v - mean) * rstd * gamma + beta in f32 with the roundings spelled out,
+// so that the LN pass and the in-shared-memory prologue give the same
+// bits whatever the compiler contracts
+__device__ __forceinline__ float ln_apply(float v, float mu, float rstd,
+                                          float g, float c) {
+  return __fmaf_rn(__fmul_rn(__fsub_rn(v, mu), rstd), g, c);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -123,12 +103,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Per-row LayerNorm statistics (mean, 1/sqrt(var + eps)) in f32: one warp
-// per row, K/32 values per lane in registers (K <= 1024, K % 256 == 0),
-// two-pass variance as the TPU kernel computes it.
+// Per-row LayerNorm in f32: one warp per row, K/32 values per lane in
+// registers (K <= 1024, K % 256 == 0), two-pass variance as the TPU kernel
+// computes it.  ROWS = false writes the row statistics (mean,
+// 1/sqrt(var + eps)) for the GEMM's LN prologue; ROWS = true writes the
+// normalised rows in bf16 (the GEMM's A operand, bitwise what the
+// prologue would make of them).
+template <bool ROWS>
 __global__ void __launch_bounds__(256)
-ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats,
-                int M, int K, float eps) {
+ln_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+          const float* __restrict__ beta, float2* __restrict__ stats,
+          bf16* __restrict__ xn, int M, int K, float eps) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
@@ -161,162 +146,45 @@ ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats,
     }
   }
   const float rstd = rsqrtf(warp_sum(q) / K + eps);
-  if (lane == 0) stats[row] = make_float2(mu, rstd);
+  if constexpr (!ROWS) {
+    if (lane == 0) stats[row] = make_float2(mu, rstd);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < nch) {
+        const int k = i * 256 + lane * 8;
+        const float4 g0 = *reinterpret_cast<const float4*>(gamma + k);
+        const float4 g1 = *reinterpret_cast<const float4*>(gamma + k + 4);
+        const float4 c0 = *reinterpret_cast<const float4*>(beta + k);
+        const float4 c1 = *reinterpret_cast<const float4*>(beta + k + 4);
+        const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        uint4 u;
+        bf16* hv = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          hv[j] = __float2bfloat16(ln_apply(v[i * 8 + j], mu, rstd, g[j],
+                                            c[j]));
+        *reinterpret_cast<uint4*>(xn + static_cast<size_t>(row) * K + k) = u;
+      }
+    }
+  }
 }
 
-// out[M, N] = A'[M, K] . W[N, K]^T + bias with A' = LN(A) (PRO_LN) or
-// GELU(A) (PRO_GELU): K1 and K6.  W is a torch Linear weight
-// (out_features, in_features), row-major.  A and W stream through a
-// STAGES-deep cp.async ring in 32-deep slices; each A slice is transformed
-// in shared memory (LN from the precomputed row statistics) before the
-// tensor cores read it, so the transformed A never reaches device memory.
-// The f32 epilogue tile aliases the ring.
-template <int PRO>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const bf16* __restrict__ A, const float2* __restrict__ stats,
-            const float* __restrict__ gamma, const float* __restrict__ beta,
-            const bf16* __restrict__ W, const float* __restrict__ bias,
-            bf16* __restrict__ out, int M, int N, int K) {
-  static_assert(BM * BK / 8 == GEMM_THREADS, "one A vector per thread");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + STAGES * BM * LDB;
-  float2* St = reinterpret_cast<float2*>(Bs + STAGES * BN * LDB);
-  float* Cs = reinterpret_cast<float*>(smem);  // after the main loop
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int nk = K / BK;
-
-  auto load_stage = [&](int stage, int kt) {
-    bf16* a = As + stage * BM * LDB;
-    for (int c = tid; c < BM * (BK / 8); c += GEMM_THREADS) {
-      const int r = c / (BK / 8), q = (c % (BK / 8)) * 8;
-      const bool ok = m0 + r < M;
-      cp_async16(a + r * LDB + q,
-                 A + static_cast<size_t>(ok ? m0 + r : 0) * K + kt * BK + q,
-                 ok);
-    }
-    bf16* b = Bs + stage * BN * LDB;
-    for (int c = tid; c < BN * (BK / 8); c += GEMM_THREADS) {
-      const int r = c / (BK / 8), q = (c % (BK / 8)) * 8;
-      cp_async16(b + r * LDB + q,
-                 W + static_cast<size_t>(n0 + r) * K + kt * BK + q, true);
-    }
-  };
-
-  if (PRO == PRO_LN) {
-    for (int r = tid; r < BM; r += GEMM_THREADS)
-      St[r] = m0 + r < M ? stats[m0 + r] : make_float2(0.f, 0.f);
-  }
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int wm = warp / 4, wn = warp % 4;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; stage kt-1 fully consumed
-    bf16* as = As + (kt % STAGES) * BM * LDB;
-    const bf16* bs = Bs + (kt % STAGES) * BN * LDB;
-    {
-      const int r = tid / (BK / 8), q = (tid % (BK / 8)) * 8;
-      const int k = kt * BK + q;
-      uint4 u = *reinterpret_cast<uint4*>(as + r * LDB + q);
-      bf16* hv = reinterpret_cast<bf16*>(&u);
-      if (PRO == PRO_LN) {
-        const float2 st = St[r];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          hv[j] = __float2bfloat16((__bfloat162float(hv[j]) - st.x) * st.y
-                                   * gamma[k + j] + beta[k + j]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          hv[j] = __float2bfloat16(gelu_erf(__bfloat162float(hv[j])));
-      }
-      *reinterpret_cast<uint4*>(as + r * LDB + q) = u;
-      __syncthreads();
-    }
-    if (kt + STAGES - 1 < nk)
-      load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * LDB + kk, LDB);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bs + (wn * 32 + j * 16) * LDB + kk, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: reuse it for the epilogue tile
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int c = tid; c < BM * BN / 8; c += GEMM_THREADS) {
-    const int r = c / (BN / 8), q = (c % (BN / 8)) * 8;
-    const int row = m0 + r;
-    if (row >= M) continue;
-    const int col = n0 + q;
-    uint4 u;
+// g = bf16(GELU(x)) elementwise, 8 bf16 (16 bytes) a thread per step of a
+// grid-stride loop: K6's A operand.
+__global__ void __launch_bounds__(256)
+gelu_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ g,
+                 size_t n8) {
+  for (size_t i = blockIdx.x * 256ull + threadIdx.x; i < n8;
+       i += gridDim.x * 256ull) {
+    uint4 u = reinterpret_cast<const uint4*>(x)[i];
     bf16* hv = reinterpret_cast<bf16*>(&u);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      hv[j] = __float2bfloat16(Cs[r * LDC + q + j] + bias[col + j]);
-    *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * N + col) = u;
+      hv[j] = __float2bfloat16(gelu_erf(__bfloat162float(hv[j])));
+    reinterpret_cast<uint4*>(g)[i] = u;
   }
-}
-
-constexpr size_t GEMM_SMEM =
-    static_cast<size_t>(STAGES) * (BM + BN) * LDB * sizeof(bf16)
-    + BM * sizeof(float2);
-static_assert(static_cast<size_t>(BM) * LDC * sizeof(float)
-              <= static_cast<size_t>(STAGES) * (BM + BN) * LDB * sizeof(bf16),
-              "the epilogue tile fits in the ring it reuses");
-
-cudaError_t launch_stats(const bf16* x, float2* stats, int M, int K,
-                         float eps, cudaStream_t stream) {
-  ln_stats_kernel<<<(M + 7) / 8, 256, 0, stream>>>(x, stats, M, K, eps);
-  return cudaGetLastError();
-}
-
-template <int PRO>
-cudaError_t launch_gemm(const bf16* A, const float2* stats,
-                        const float* gamma, const float* beta, const bf16* W,
-                        const float* bias, bf16* out, int M, int N, int K,
-                        cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<PRO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(GEMM_SMEM));
-  if (e != cudaSuccess) return e;
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_kernel<PRO><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
-      A, stats, gamma, beta, W, bias, out, M, N, K);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------ Hopper primitives ----
@@ -406,6 +274,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// Signals a named barrier without waiting: the threads that bar.sync on
+// it go on once n threads in all have arrived.
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -587,11 +461,11 @@ __device__ __forceinline__ void wgmma_m64n64_rs_tb(float (&d)[32],
 }
 
 
-// ------------------------------------------- K3: the wgmma GEMM ----
+// ------------------------------------- K1, K3, K6: the wgmma GEMM ----
 
-constexpr int WG_BM = 128;     // output tile rows: two consumer warpgroups
-constexpr int WG_BK = 64;      // one 128-byte swizzled row of bf16
-constexpr int WG_STAGES = 4;   // TMA ring depth
+constexpr int WG_BM = 128;       // output tile rows
+constexpr int WG_BK = 64;        // one 128-byte swizzled row of bf16
+constexpr int WG_STAGES = 4;     // TMA ring depth
 constexpr int WG_THREADS = 384;  // producer warpgroup + two consumers
 
 template <int TBN>
@@ -611,12 +485,27 @@ __device__ __forceinline__ void wgmma_tile(float (&acc)[TBN / 2],
 }
 
 // out[M, N] = epi(A'[M, K] . W[N, K]^T) with A' = LN(A) (PRO_LN, from the
-// precomputed row statistics) or A (PRO_NONE); epi adds the bias, then
-// applies GELU (EPI_GELU) or adds the residual (EPI_RESID), in f32, and
-// rounds to bf16 once.  tmA / tmB are 2-D tensor maps of A (M, K) and W
-// (N, K) with 64 x 128 and 64 x TBN boxes, 128-byte swizzle.  K % 64 == 0
-// and N % TBN == 0; rows past M load as zeros and are not stored.
-template <int PRO, int EPI, int TBN>
+// precomputed row statistics), GELU(A) (PRO_GELU) or A (PRO_NONE); epi
+// adds the bias, then applies GELU (EPI_GELU) or adds the residual
+// (EPI_RESID), in f32, and rounds to bf16 once.  tmA / tmB are 2-D tensor
+// maps of A (M, K) and W (N, K) with 64 x 128 and 64 x TBN boxes, 128-byte
+// swizzle.  K % 64 == 0 and N % TBN == 0; rows past M load as zeros and are
+// not stored.
+//
+// Persistent: block b walks tiles b, b + grid, ... (column-major over the
+// 128 x TBN tiles, so neighbouring blocks share a weight panel); one
+// producer thread keeps the TMA ring full across them.  Two schedules:
+// - cooperative (PING false): both consumer warpgroups take every stage,
+//   64 rows each of one 128 x TBN tile, and run their epilogues together
+//   with the tensor cores idle;
+// - ping-pong (PING true, TBN = 128): consumer c owns the block's tiles
+//   c, c + 2, ... whole (two 64-row slabs, 128 accumulators a thread) and
+//   takes only their stages; an ordered pair of named barriers lets one
+//   warpgroup issue its mainloop only after the other has issued its own,
+//   so one runs its epilogue while the other's products run.  The order
+//   also keeps each warpgroup's ring parity unambiguous: every stage it
+//   waits for has been filled once more than it last saw.
+template <int PRO, int EPI, int TBN, bool PING>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                   const __grid_constant__ CUtensorMap tmB,
@@ -626,6 +515,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                   const float* __restrict__ bias,
                   const bf16* __restrict__ resid, bf16* __restrict__ out,
                   int M, int N, int K) {
+  static_assert(!PING || TBN == 128,
+                "a ping-pong consumer holds its 128 x 128 tile in registers");
+  constexpr int R = PING ? 2 : 1;  // 64-row slabs a consumer computes
   constexpr int A_ELEMS = WG_BM * WG_BK, B_ELEMS = TBN * WG_BK;
   constexpr uint32_t STAGE_BYTES = (A_ELEMS + B_ELEMS) * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
@@ -640,11 +532,13 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
   const int m_tiles = (M + WG_BM - 1) / WG_BM;
   const int n_tiles_total = m_tiles * (N / TBN);
   const int nk = K / WG_BK;
+  // the launch gives every block at least one tile
+  const int n_local = (n_tiles_total - 1 - blockIdx.x) / gridDim.x + 1;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < WG_STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&empty[s], PING ? 4 : 8);  // one arrival per consuming warp
     }
     mbar_init_fence();
   }
@@ -656,7 +550,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
     if (tid == 0) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int tile = blockIdx.x; tile < n_tiles_total; tile += gridDim.x) {
+      for (int j = 0; j < n_local; ++j) {
+        const int tile = blockIdx.x + j * gridDim.x;
         const int m0 = (tile % m_tiles) * WG_BM;
         const int n0 = (tile / m_tiles) * TBN;
         for (int kb = 0; kb < nk; ++kb) {
@@ -675,68 +570,89 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int cw = wg - 1;  // this consumer's 64-row half of the tile
+    const int cw = wg - 1;
+    const int rbase = PING ? 0 : cw * 64;  // first tile row this consumer owns
     const int warp = tid / 32, lane = tid % 32;
-    float acc[TBN / 2];
-#pragma unroll
-    for (int i = 0; i < TBN / 2; ++i) acc[i] = 0.f;
+    float acc[R][TBN / 2];
     int stage = 0;
     uint32_t phase = 0;
-    for (int tile = blockIdx.x; tile < n_tiles_total; tile += gridDim.x) {
+    for (int j = PING ? cw : 0; j < n_local; j += PING ? 2 : 1) {
+      const int tile = blockIdx.x + j * gridDim.x;
       const int m0 = (tile % m_tiles) * WG_BM;
       const int n0 = (tile / m_tiles) * TBN;
-      // LN prologue: this thread normalises 16-byte chunk (tid % 8) of
-      // rows tid / 8 + 16 q of the half tile; in the swizzled layout that
-      // chunk holds logical chunk (tid % 8) ^ (row % 8) of the K slice
-      float2 st[4];
+      if constexpr (PING) {
+        // this tile's stages start at ring position j * nk
+        stage = (j * nk) % WG_STAGES;
+        phase = ((j * nk) / WG_STAGES) & 1;
+        if (j > 0) named_bar_sync(3 + cw, 256);  // the other has issued
+      }
+      // prologue: this thread transforms 16-byte chunk (tid % 8) of rows
+      // tid / 8 + 16 q of its slabs; in the swizzled layout that chunk
+      // holds logical chunk (tid % 8) ^ (row % 8) of the K slice
+      float2 st[4 * R];
       const int lchunk = (tid % 8) ^ ((tid / 8) % 8);
       if constexpr (PRO == PRO_LN) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int row = m0 + cw * 64 + tid / 8 + 16 * q;
+        for (int q = 0; q < 4 * R; ++q) {
+          const int row = m0 + rbase + tid / 8 + 16 * q;
           st[q] = row < M ? stats[row] : make_float2(0.f, 0.f);
         }
       }
       int prev = 0;
       for (int kb = 0; kb < nk; ++kb) {
         mbar_wait(&full[stage], phase);
-        bf16* a = As + stage * A_ELEMS + cw * 64 * WG_BK;
-        if constexpr (PRO == PRO_LN) {
-          const int k = kb * WG_BK + lchunk * 8;
-          const float4 g0 = *reinterpret_cast<const float4*>(gamma + k);
-          const float4 g1 = *reinterpret_cast<const float4*>(gamma + k + 4);
-          const float4 c0 = *reinterpret_cast<const float4*>(beta + k);
-          const float4 c1 = *reinterpret_cast<const float4*>(beta + k + 4);
-          const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-          const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        bf16* a = As + stage * A_ELEMS + rbase * WG_BK;
+        if constexpr (PRO != PRO_NONE) {
+          float g[8], c[8];
+          if constexpr (PRO == PRO_LN) {
+            const int k = kb * WG_BK + lchunk * 8;
+            const float4 g0 = *reinterpret_cast<const float4*>(gamma + k);
+            const float4 g1 = *reinterpret_cast<const float4*>(gamma + k + 4);
+            const float4 c0 = *reinterpret_cast<const float4*>(beta + k);
+            const float4 c1 = *reinterpret_cast<const float4*>(beta + k + 4);
+            g[0] = g0.x; g[1] = g0.y; g[2] = g0.z; g[3] = g0.w;
+            g[4] = g1.x; g[5] = g1.y; g[6] = g1.z; g[7] = g1.w;
+            c[0] = c0.x; c[1] = c0.y; c[2] = c0.z; c[3] = c0.w;
+            c[4] = c1.x; c[5] = c1.y; c[6] = c1.z; c[7] = c1.w;
+          }
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
+          for (int q = 0; q < 4 * R; ++q) {
             uint4* p = reinterpret_cast<uint4*>(
                 reinterpret_cast<unsigned char*>(a)
                 + (tid / 8 + 16 * q) * 128 + (tid % 8) * 16);
             uint4 u = *p;
             bf16* hv = reinterpret_cast<bf16*>(&u);
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-              hv[j] = __float2bfloat16((__bfloat162float(hv[j]) - st[q].x)
-                                       * st[q].y * g[j] + c[j]);
+            for (int e = 0; e < 8; ++e) {
+              const float v = __bfloat162float(hv[e]);
+              if constexpr (PRO == PRO_LN)
+                hv[e] = __float2bfloat16(ln_apply(v, st[q].x, st[q].y, g[e],
+                                                  c[e]));
+              else
+                hv[e] = __float2bfloat16(gelu_erf(v));
+            }
             *p = u;
           }
           fence_proxy_async();
           named_bar_sync(1 + cw, 128);
         }
-        const uint64_t da = sw128_desc(a);
         const uint64_t db = sw128_desc(Bs + stage * B_ELEMS);
-        fence_regs(acc);
+#pragma unroll
+        for (int r = 0; r < R; ++r) fence_regs(acc[r]);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < WG_BK / 16; ++kk)
-          wgmma_tile<TBN>(acc, da + 2 * kk, db + 2 * kk, (kb | kk) != 0);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            wgmma_tile<TBN>(acc[r], sw128_desc(a + r * 64 * WG_BK) + 2 * kk,
+                            db + 2 * kk, (kb | kk) != 0);
         wgmma_commit();
-        fence_regs(acc);
+#pragma unroll
+        for (int r = 0; r < R; ++r) fence_regs(acc[r]);
         // keep one group in flight: the previous stage is now free
         wgmma_wait<1>();
-        fence_regs(acc);
+#pragma unroll
+        for (int r = 0; r < R; ++r) fence_regs(acc[r]);
         if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
         prev = stage;
         if (++stage == WG_STAGES) {
@@ -744,36 +660,43 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
           phase ^= 1;
         }
       }
+      if constexpr (PING) {
+        if (j + 1 < n_local) named_bar_arrive(3 + (1 - cw), 256);
+      }
       wgmma_wait<0>();
-      fence_regs(acc);
+#pragma unroll
+      for (int r = 0; r < R; ++r) fence_regs(acc[r]);
       if (lane == 0) mbar_arrive(&empty[prev]);
 
       // epilogue from the accumulator registers: d[4j + {0,1}] is (row,
       // col + {0,1}) and d[4j + {2,3}] is (row + 8, col + {0,1})
-      const int row0 = m0 + cw * 64 + warp * 16 + lane / 4;
       const int colb = n0 + 2 * (lane % 4);
 #pragma unroll
-      for (int j = 0; j < TBN / 8; ++j) {
-        const int col = colb + 8 * j;
-        const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+      for (int r = 0; r < R; ++r) {
+        const int row0 = m0 + rbase + r * 64 + warp * 16 + lane / 4;
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = row0 + 8 * hh;
-          if (row >= M) continue;
-          float v0 = acc[4 * j + 2 * hh] + bb.x;
-          float v1 = acc[4 * j + 2 * hh + 1] + bb.y;
-          const size_t off = static_cast<size_t>(row) * N + col;
-          if constexpr (EPI == EPI_GELU) {
-            v0 = gelu_erf(v0);
-            v1 = gelu_erf(v1);
-          } else if constexpr (EPI == EPI_RESID) {
-            const float2 r = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(resid + off));
-            v0 += r.x;
-            v1 += r.y;
+        for (int jj = 0; jj < TBN / 8; ++jj) {
+          const int col = colb + 8 * jj;
+          const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = row0 + 8 * hh;
+            if (row >= M) continue;
+            float v0 = acc[r][4 * jj + 2 * hh] + bb.x;
+            float v1 = acc[r][4 * jj + 2 * hh + 1] + bb.y;
+            const size_t off = static_cast<size_t>(row) * N + col;
+            if constexpr (EPI == EPI_GELU) {
+              v0 = gelu_erf(v0);
+              v1 = gelu_erf(v1);
+            } else if constexpr (EPI == EPI_RESID) {
+              const float2 rr = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(resid + off));
+              v0 += rr.x;
+              v1 += rr.y;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(out + off) =
+                __floats2bfloat162_rn(v0, v1);
           }
-          *reinterpret_cast<__nv_bfloat162*>(out + off) =
-              __floats2bfloat162_rn(v0, v1);
         }
       }
     }
@@ -1040,39 +963,74 @@ int sm_count() {
   return n;
 }
 
-// out[M, N] = epi(pro(A)[M, K] . W[N, K]^T): the persistent wgmma GEMM,
-// 128 x 256 tiles where N allows, else 128 x 128.
+// One launch of wgmma_gemm_kernel<PRO, EPI, TBN, PING>, one block per SM
+// (or per tile, if fewer).  The shared-memory attribute is set once per
+// instantiation (a thread-safe static; the port drives one card); the two
+// tensor maps are encoded on each call, since A and out change.
+template <int PRO, int EPI, int TBN, bool PING>
+cudaError_t launch_gemm_cfg(const bf16* A, const float2* stats,
+                            const float* gamma, const float* beta,
+                            const bf16* W, const float* bias,
+                            const bf16* resid, bf16* out, int M, int N,
+                            int K, cudaStream_t stream) {
+  auto kern = wgmma_gemm_kernel<PRO, EPI, TBN, PING>;
+  constexpr size_t smem = wg_gemm_smem<TBN>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  if (M == 0) return cudaSuccess;
+  CUtensorMap ta, tb;
+  cudaError_t e = matrix_map(&ta, A, M, K, WG_BM);
+  if (e == cudaSuccess) e = matrix_map(&tb, W, N, K, TBN);
+  if (e != cudaSuccess) return e;
+  const int tiles = (M + WG_BM - 1) / WG_BM * (N / TBN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  kern<<<grid, WG_THREADS, smem, stream>>>(ta, tb, stats, gamma, beta, bias,
+                                           resid, out, M, N, K);
+  return cudaGetLastError();
+}
+
+// out[M, N] = epi(pro(A)[M, K] . W[N, K]^T): 128 x 256 tiles where N
+// allows, else 128 x 128, cooperative.
 template <int PRO, int EPI>
 cudaError_t launch_wgmma_gemm(const bf16* A, const float2* stats,
                               const float* gamma, const float* beta,
                               const bf16* W, const float* bias,
                               const bf16* resid, bf16* out, int M, int N,
                               int K, cudaStream_t stream) {
-  const bool wide = N % 256 == 0;
-  const int tbn = wide ? 256 : 128;
-  CUtensorMap ta, tb;
-  cudaError_t e = matrix_map(&ta, A, M, K, WG_BM);
-  if (e == cudaSuccess) e = matrix_map(&tb, W, N, K, tbn);
-  if (e != cudaSuccess) return e;
-  const int tiles = (M + WG_BM - 1) / WG_BM * (N / tbn);
-  const int grid = tiles < sm_count() ? tiles : sm_count();
-  if (wide) {
-    auto kern = wgmma_gemm_kernel<PRO, EPI, 256>;
-    const size_t smem = wg_gemm_smem<256>();
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    kern<<<grid, WG_THREADS, smem, stream>>>(ta, tb, stats, gamma, beta,
-                                             bias, resid, out, M, N, K);
-  } else {
-    auto kern = wgmma_gemm_kernel<PRO, EPI, 128>;
-    const size_t smem = wg_gemm_smem<128>();
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    kern<<<grid, WG_THREADS, smem, stream>>>(ta, tb, stats, gamma, beta,
-                                             bias, resid, out, M, N, K);
-  }
+  if (N % 256 == 0)
+    return launch_gemm_cfg<PRO, EPI, 256, false>(A, stats, gamma, beta, W,
+                                                 bias, resid, out, M, N, K,
+                                                 stream);
+  return launch_gemm_cfg<PRO, EPI, 128, false>(A, stats, gamma, beta, W,
+                                               bias, resid, out, M, N, K,
+                                               stream);
+}
+
+// The LN pass: row statistics (xn == nullptr) or the normalised rows.
+cudaError_t launch_ln(const bf16* x, const float* gamma, const float* beta,
+                      float2* stats, bf16* xn, int M, int K, float eps,
+                      cudaStream_t stream) {
+  if (M == 0) return cudaSuccess;
+  if (xn == nullptr)
+    ln_kernel<false><<<(M + 7) / 8, 256, 0, stream>>>(x, gamma, beta, stats,
+                                                      xn, M, K, eps);
+  else
+    ln_kernel<true><<<(M + 7) / 8, 256, 0, stream>>>(x, gamma, beta, stats,
+                                                     xn, M, K, eps);
+  return cudaGetLastError();
+}
+
+// The GELU pass over n elements (n % 8 == 0).
+cudaError_t launch_gelu_rows(const bf16* x, bf16* g, size_t n,
+                             cudaStream_t stream) {
+  const size_t n8 = n / 8;
+  if (n8 == 0) return cudaSuccess;
+  const size_t most = static_cast<size_t>(sm_count()) * 8;
+  const size_t blocks = (n8 + 255) / 256 < most ? (n8 + 255) / 256 : most;
+  gelu_rows_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(x, g,
+                                                                     n8);
   return cudaGetLastError();
 }
 
@@ -1091,18 +1049,21 @@ cudaError_t attn_map(CUtensorMap* map, const void* base,
 
 }  // namespace
 
+// K1: the LN pass writes the rows to xn (M, K), then the GEMM adds the
+// bias.
 extern "C" int avl_ln_matmul(const void* x, const void* gamma,
                              const void* beta, const void* w,
-                             const void* bias, void* stats, void* out, int M,
+                             const void* bias, void* xn, void* out, int M,
                              int N, int K, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = launch_stats(static_cast<const bf16*>(x),
-                               static_cast<float2*>(stats), M, K, eps, s);
+  cudaError_t e = launch_ln(static_cast<const bf16*>(x),
+                            static_cast<const float*>(gamma),
+                            static_cast<const float*>(beta), nullptr,
+                            static_cast<bf16*>(xn), M, K, eps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_gemm<PRO_LN>(
-      static_cast<const bf16*>(x), static_cast<const float2*>(stats),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const bf16*>(w), static_cast<const float*>(bias),
+  return static_cast<int>(launch_wgmma_gemm<PRO_NONE, EPI_BIAS>(
+      static_cast<const bf16*>(xn), nullptr, nullptr, nullptr,
+      static_cast<const bf16*>(w), static_cast<const float*>(bias), nullptr,
       static_cast<bf16*>(out), M, N, K, s));
 }
 
@@ -1113,8 +1074,9 @@ extern "C" int avl_ln_mlp_residual(const void* x, const void* gamma,
                                    void* out, int M, int K, int N1,
                                    float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = launch_stats(static_cast<const bf16*>(x),
-                               static_cast<float2*>(stats), M, K, eps, s);
+  cudaError_t e = launch_ln(static_cast<const bf16*>(x), nullptr, nullptr,
+                            static_cast<float2*>(stats), nullptr, M, K, eps,
+                            s);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = launch_wgmma_gemm<PRO_LN, EPI_GELU>(
       static_cast<const bf16*>(x), static_cast<const float2*>(stats),
@@ -1149,11 +1111,17 @@ extern "C" int avl_mha(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K6: the GELU pass writes g (M, K), then the GEMM adds the bias.
 extern "C" int avl_gelu_matmul(const void* x, const void* w,
-                               const void* bias, void* out, int M, int N,
-                               int K, void* stream) {
-  return static_cast<int>(launch_gemm<PRO_GELU>(
-      static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
-      static_cast<const bf16*>(w), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream)));
+                               const void* bias, void* g, void* out, int M,
+                               int N, int K, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = launch_gelu_rows(static_cast<const bf16*>(x),
+                                   static_cast<bf16*>(g),
+                                   static_cast<size_t>(M) * K, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_wgmma_gemm<PRO_NONE, EPI_BIAS>(
+      static_cast<const bf16*>(g), nullptr, nullptr, nullptr,
+      static_cast<const bf16*>(w), static_cast<const float*>(bias), nullptr,
+      static_cast<bf16*>(out), M, N, K, s));
 }

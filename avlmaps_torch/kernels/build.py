@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -103,6 +104,30 @@ def build_all() -> Dict[str, str]:
         f = BUILD_DIR / f"{n}.log"
         logs[n] = f.read_text() if f.exists() else ""
     return logs
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill-store bytes of every function in an nvcc log
+    written with ``-Xptxas -v``, by mangled name (template arguments stay
+    readable in it, e.g. ``wgmma_gemm_kernelILi0ELi0ELi256ELb0EE``)."""
+    funcs: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^'\s]+)", line)
+        if m:
+            cur = m.group(1)
+            funcs.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            funcs[cur]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            funcs[cur]["registers"] = int(m.group(1))
+    return funcs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,7 +11,9 @@ package (qkv is ``(B*T, 3W)`` laid out ``[q | k | v]``); weights are in
 the ``torch.nn.Linear`` layout ``(out_features, in_features)``.
 
 - ``ln_matmul`` (K1): ``LayerNorm(x) @ w.T + bias``.  LN statistics in
-  f32, normalised rows rounded to the weight dtype, f32 accumulation.
+  f32, normalised rows rounded to the weight dtype (``ln_rows_ref``), f32
+  accumulation.  On the card an LN pass writes the rows, then the wgmma
+  GEMM reads them.
 - ``mha_oneshot_2d`` (K2): 16-head softmax attention read straight from
   the qkv matrix; keys at or beyond ``t_real`` are masked.  ``mha_bhtd``
   runs the same kernel on (B, H, T, D) tensors, the layout of the JAX
@@ -25,9 +27,10 @@ the ``torch.nn.Linear`` layout ``(out_features, in_features)``.
   the JAX package's unfused route, ``ln_matmul`` -> ``gelu_matmul`` ->
   residual add.
 - ``gelu_matmul`` (K6): ``GELU(x) @ w.T + bias``, the GELU of the input
-  rounded to the weight dtype.  It uses exact erf (``erff`` on the card),
-  where the TPU kernel uses a 10-term polynomial with |error| <= 3.4e-5,
-  well inside bf16 resolution.
+  rounded to the weight dtype (``gelu_rows_ref``).  It uses exact erf
+  (``erff`` on the card), where the TPU kernel uses a 10-term polynomial
+  with |error| <= 3.4e-5, well inside bf16 resolution.  On the card a
+  GELU pass writes the rounded input, then the wgmma GEMM reads it.
 
 ``MLP_FUSE`` (read at call time, as in the JAX package) routes the ViT
 block's MLP through K3 when True and through K1 + K6 when False.
@@ -49,7 +52,7 @@ _SIGNATURES = {
     "avl_ln_matmul": [_P] * 7 + [_I] * 3 + [_F, _P],
     "avl_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_F, _P],
     "avl_mha": [_P] * 4 + [_I64P] + [_I] * 4 + [_F, _P],
-    "avl_gelu_matmul": [_P] * 4 + [_I] * 3 + [_P],
+    "avl_gelu_matmul": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 # Route the ViT MLP sub-block through ln_mlp_residual (K3) instead of the
@@ -91,8 +94,9 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
         _require(t.device == dev, f"{name}: tensors on {t.device} and {dev}")
-        _require(t.is_contiguous(), f"{name}: tensor of shape "
-                 f"{tuple(t.shape)} is not contiguous")
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 f"{name}: tensor of shape {tuple(t.shape)} is not "
+                 "contiguous and 16-byte aligned")
 
 
 def _vec_f32(v: torch.Tensor) -> torch.Tensor:
@@ -116,11 +120,19 @@ def _layer_norm_f32(x2d: torch.Tensor, scale: torch.Tensor,
 
 # ------------------------------------------------------------------- K1 ---
 
+def ln_rows_ref(x2d: torch.Tensor, ln_scale: torch.Tensor,
+                ln_bias: torch.Tensor, *, eps: float,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K1's LN pass: the normalised rows in f32, rounded
+    once to ``dtype`` -- the A operand of K1's product."""
+    return _layer_norm_f32(x2d, ln_scale, ln_bias, eps).to(dtype)
+
+
 def ln_matmul_ref(x2d: torch.Tensor, ln_scale: torch.Tensor,
                   ln_bias: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                   *, eps: float) -> torch.Tensor:
     """Plain version of :func:`ln_matmul`, rounding where the kernel does."""
-    xn = _layer_norm_f32(x2d, ln_scale, ln_bias, eps).to(w.dtype).float()
+    xn = ln_rows_ref(x2d, ln_scale, ln_bias, eps=eps, dtype=w.dtype).float()
     y = xn @ w.float().t() + bias.float()
     return y.to(x2d.dtype)
 
@@ -128,10 +140,12 @@ def ln_matmul_ref(x2d: torch.Tensor, ln_scale: torch.Tensor,
 def ln_matmul(x2d: torch.Tensor, ln_scale: torch.Tensor,
               ln_bias: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
               eps: float) -> torch.Tensor:
-    """``LayerNorm(x2d) @ w.T + bias`` without storing the LN output.
+    """``LayerNorm(x2d) @ w.T + bias``.
 
     x2d: (M, K); ln_scale/ln_bias: (K,); w: (N, K); bias: (N,).  On CUDA:
-    bf16 x and w, K a multiple of 256 up to 1024, N a multiple of 128."""
+    bf16 x and w, K a multiple of 256 up to 1024, N a multiple of 128; the
+    LN pass writes the (M, K) bf16 rows to a scratch buffer that the wgmma
+    GEMM reads."""
     if x2d.device.type == "cpu":
         return ln_matmul_ref(x2d, ln_scale, ln_bias, w, bias, eps=eps)
     _require(x2d.is_cuda, f"ln_matmul: unsupported device {x2d.device}")
@@ -148,10 +162,10 @@ def ln_matmul(x2d: torch.Tensor, ln_scale: torch.Tensor,
              f"N % 128 == 0, got K={k}, N={n}")
     g, c, bb = _vec_f32(ln_scale), _vec_f32(ln_bias), _vec_f32(bias)
     _check_cuda("ln_matmul", x2d, w, g, c, bb)
-    stats = _row_stats(x2d)
+    xn = torch.empty_like(x2d)
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     rc = _lib().avl_ln_matmul(x2d.data_ptr(), g.data_ptr(), c.data_ptr(),
-                              w.data_ptr(), bb.data_ptr(), stats.data_ptr(),
+                              w.data_ptr(), bb.data_ptr(), xn.data_ptr(),
                               out.data_ptr(), m, n, k, float(eps), _stream())
     _raise_on(rc, "ln_matmul")
     ln_matmul.launches += 1
@@ -281,7 +295,7 @@ def ln_mlp_residual_ref(x2d: torch.Tensor, ln_scale: torch.Tensor,
                         b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                         *, eps: float) -> torch.Tensor:
     """Plain version of :func:`ln_mlp_residual`."""
-    xn = _layer_norm_f32(x2d, ln_scale, ln_bias, eps).to(w1.dtype).float()
+    xn = ln_rows_ref(x2d, ln_scale, ln_bias, eps=eps, dtype=w1.dtype).float()
     h = xn @ w1.float().t() + b1.float()
     gl = F.gelu(h).to(w2.dtype).float()  # exact erf
     y = gl @ w2.float().t() + b2.float()
@@ -341,21 +355,29 @@ ln_mlp_residual.launches = 0
 
 # ------------------------------------------------------------------- K6 ---
 
+def gelu_rows_ref(x2d: torch.Tensor, *, dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K6's GELU pass: exact-erf GELU in f32, rounded once
+    to ``dtype`` -- the A operand of K6's product."""
+    return F.gelu(x2d.float()).to(dtype)
+
+
 def gelu_matmul_ref(x2d: torch.Tensor, w: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`gelu_matmul`: exact-erf GELU in f32, rounded
     to the weight dtype, f32 product plus bias, rounded to x's dtype."""
-    g = F.gelu(x2d.float()).to(w.dtype).float()
+    g = gelu_rows_ref(x2d, dtype=w.dtype).float()
     y = g @ w.float().t() + bias.float()
     return y.to(x2d.dtype)
 
 
 def gelu_matmul(x2d: torch.Tensor, w: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
-    """``GELU(x2d) @ w.T + bias`` without storing the GELU output.
+    """``GELU(x2d) @ w.T + bias``.
 
     x2d: (M, K); w: (N, K); bias: (N,).  On CUDA: bf16 x and w, K a
-    multiple of 32, N a multiple of 128."""
+    multiple of 64 (every caller passes K = 4 x a ViT width that is a
+    multiple of 256), N a multiple of 128; the GELU pass writes the (M, K)
+    bf16 operand to a scratch buffer that the wgmma GEMM reads."""
     if x2d.device.type == "cpu":
         return gelu_matmul_ref(x2d, w, bias)
     _require(x2d.is_cuda, f"gelu_matmul: unsupported device {x2d.device}")
@@ -366,14 +388,16 @@ def gelu_matmul(x2d: torch.Tensor, w: torch.Tensor,
              f"{w.dtype}")
     _require(w.shape == (n, k) and bias.shape == (n,),
              "gelu_matmul: shape mismatch")
-    _require(k % 32 == 0 and n % 128 == 0,
-             f"gelu_matmul: kernel needs K % 32 == 0 and N % 128 == 0, got "
+    _require(k % 64 == 0 and n % 128 == 0,
+             f"gelu_matmul: kernel needs K % 64 == 0 and N % 128 == 0, got "
              f"K={k}, N={n}")
     bb = _vec_f32(bias)
     _check_cuda("gelu_matmul", x2d, w, bb)
+    gx = torch.empty_like(x2d)
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     rc = _lib().avl_gelu_matmul(x2d.data_ptr(), w.data_ptr(), bb.data_ptr(),
-                                out.data_ptr(), m, n, k, _stream())
+                                gx.data_ptr(), out.data_ptr(), m, n, k,
+                                _stream())
     _raise_on(rc, "gelu_matmul")
     gelu_matmul.launches += 1
     return out

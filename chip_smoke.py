@@ -143,10 +143,37 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of every kernel ``fn`` launches, per call, from
+    ``torch.profiler``: the kernels' own time, free of the host's launch
+    gaps that bound ``time_ms`` near 0.1 ms for a wrapper that encodes
+    tensor maps on each call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / iters
+
+
 def bound(flops: float, nbytes: float, peak_flops: float):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _times(r) -> str:
+    dev = (f" (device {r['device_ms']:.4f} ms, profiler)" if "device_ms" in r
+           else "")
+    return (f"kernel {r['ms']:.4f} ms{dev}, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
 
 
 def compare(name: str, got, want, atol: float, rtol: float) -> float:
@@ -212,9 +239,43 @@ def k2_case(g, nb: int, t: int):
     return dict(name="mha_oneshot_2d", fn=fv.mha_oneshot_2d, route="cuda",
                 source="avlmaps_torch/csrc/fused_vit.cu",
                 replaces="avlmaps_tpu/ops/fused_vit.py:149",
-                max_abs_err=err, ms=time_ms(k2), plain_ms=time_ms(p2, 3),
-                bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, ms=time_ms(k2), device_ms=device_ms(k2),
+                plain_ms=time_ms(p2, 3), bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(lib2)), qkv
+
+
+def k1_case(g, m: int, n: int):
+    """K1 (ln_matmul) on M random rows at ViT-L width into N columns (3072:
+    the qkv projection; 4096: the unfused route's fc) against its plain
+    version, timed beside F.layer_norm + F.linear; returns its
+    kernel-table row."""
+    import torch
+    import torch.nn.functional as F
+
+    from avlmaps_torch.ops import fused_vit as fv
+
+    eps = 1e-6
+    x = _randn(g, m, WIDTH)
+    gam = 1.0 + _randn(g, WIDTH, std=0.1, dtype=torch.float32)
+    bet = _randn(g, WIDTH, std=0.1, dtype=torch.float32)
+    w = _randn(g, n, WIDTH, std=WIDTH ** -0.5)
+    b = _randn(g, n, std=0.1, dtype=torch.float32)
+    k1 = lambda: fv.ln_matmul(x, gam, bet, w, b, eps=eps)  # noqa: E731
+    p1 = lambda: fv.ln_matmul_ref(x, gam, bet, w, b, eps=eps)  # noqa: E731
+    lib1 = lambda: F.linear(F.layer_norm(x, (WIDTH,), gam.to(x.dtype),  # noqa: E731
+                                         bet.to(x.dtype), eps), w,
+                            b.to(x.dtype))
+    err = compare(f"K1 ln_matmul (M={m}, N={n})", k1(), p1(), BF_ATOL,
+                  BF_RTOL)
+    b_ms, b_by = bound(2 * m * WIDTH * n,
+                       2 * (m * WIDTH + n * WIDTH + m * n)
+                       + 4 * (2 * WIDTH + n), PEAK_BF16)
+    return dict(name="ln_matmul", fn=fv.ln_matmul, route="cuda",
+                source="avlmaps_torch/csrc/fused_vit.cu",
+                replaces="avlmaps_tpu/ops/fused_vit.py:438",
+                max_abs_err=err, ms=time_ms(k1), device_ms=device_ms(k1),
+                plain_ms=time_ms(p1, 3), bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lib1))
 
 
 def k3_case(g, m: int):
@@ -251,7 +312,8 @@ def k3_case(g, m: int):
     return dict(name="ln_mlp_residual", fn=fv.ln_mlp_residual, route="cuda",
                 source="avlmaps_torch/csrc/fused_vit.cu",
                 replaces="avlmaps_tpu/ops/fused_vit.py:321",
-                max_abs_err=err, ms=time_ms(k3), plain_ms=time_ms(p3, 3),
+                max_abs_err=err, ms=time_ms(k3), device_ms=device_ms(k3),
+                plain_ms=time_ms(p3, 3),
                 bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib3))
 
 
@@ -268,29 +330,10 @@ def kernel_checks():
     g.manual_seed(0)
 
     m = BATCH * CROPS * T
-    eps = 1e-6
-    x = _randn(g, m, WIDTH)
-    gam = 1.0 + _randn(g, WIDTH, std=0.1, dtype=torch.float32)
-    bet = _randn(g, WIDTH, std=0.1, dtype=torch.float32)
     rows = []
 
     # K1: LN -> qkv
-    wq = _randn(g, 3 * WIDTH, WIDTH, std=WIDTH ** -0.5)
-    bq = _randn(g, 3 * WIDTH, std=0.1, dtype=torch.float32)
-    k1 = lambda: fv.ln_matmul(x, gam, bet, wq, bq, eps=eps)  # noqa: E731
-    p1 = lambda: fv.ln_matmul_ref(x, gam, bet, wq, bq, eps=eps)  # noqa: E731
-    lib1 = lambda: F.linear(F.layer_norm(x, (WIDTH,), gam.to(x.dtype),  # noqa: E731
-                                         bet.to(x.dtype), eps), wq,
-                            bq.to(x.dtype))
-    err = compare("K1 ln_matmul", k1(), p1(), BF_ATOL, BF_RTOL)
-    b_ms, b_by = bound(2 * m * WIDTH * 3 * WIDTH,
-                       2 * (m * WIDTH + 3 * WIDTH * WIDTH + m * 3 * WIDTH)
-                       + 4 * (2 * WIDTH + 3 * WIDTH), PEAK_BF16)
-    rows.append(dict(name="ln_matmul", fn=fv.ln_matmul, route="cuda",
-                     source="avlmaps_torch/csrc/fused_vit.cu",
-                     replaces="avlmaps_tpu/ops/fused_vit.py:438",
-                     max_abs_err=err, ms=time_ms(k1), plain_ms=time_ms(p1, 3),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib1)))
+    rows.append(k1_case(g, m, 3 * WIDTH))
 
     # K2: attention on the fused qkv matrix (plus a masked-key check)
     nb = BATCH * CROPS
@@ -360,9 +403,7 @@ def kernel_checks():
                      max_abs_err=err, ms=time_ms(k4), plain_ms=time_ms(p4),
                      bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib4)))
     for r in rows:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"  {r['name']}: {_times(r)}")
     return rows
 
 
@@ -754,7 +795,8 @@ def vit_kernel_checks():
     rows.append(dict(name="gelu_matmul", fn=fv.gelu_matmul, route="cuda",
                      source="avlmaps_torch/csrc/fused_vit.cu",
                      replaces="avlmaps_tpu/ops/fused_vit.py:459",
-                     max_abs_err=err, ms=time_ms(k6), plain_ms=time_ms(p6, 3),
+                     max_abs_err=err, ms=time_ms(k6), device_ms=device_ms(k6),
+                     plain_ms=time_ms(p6, 3),
                      bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib6)))
     del x
 
@@ -777,12 +819,11 @@ def vit_kernel_checks():
     rows.append(dict(name="mha_bhtd", fn=fv.mha_bhtd, route="cuda",
                      source="avlmaps_torch/csrc/fused_vit.cu",
                      replaces="avlmaps_tpu/models/lseg/vit.py:81",
-                     max_abs_err=err, ms=time_ms(k2), plain_ms=time_ms(p2, 3),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib2)))
+                     max_abs_err=err, ms=time_ms(k2), device_ms=device_ms(k2),
+                     plain_ms=time_ms(p2, 3), bound_ms=b_ms, bound_by=b_by,
+                     library_ms=time_ms(lib2)))
     for r in rows:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"  {r['name']}: {_times(r)}")
     return rows
 
 
@@ -983,25 +1024,30 @@ def throughput_run(net, tmp: Path, k5_row, path_rows):
 
 
 def throughput_shape_checks(thr_t: int, launches: dict):
-    """K3 and K2 at the throughput build's shapes (batch 16 whole canvas:
-    M = 16 * thr_t rows, attention on (16, 16, thr_t, 64)) against their
-    plain versions, with times, bounds and library times; the launches are
-    the throughput build's."""
+    """K1, K3 and K2 at the throughput build's shapes (batch 16 whole
+    canvas: M = 16 * thr_t rows, attention on (16, 16, thr_t, 64)) against
+    their plain versions, with times, bounds and library times; the
+    launches are the throughput build's.  Then K1 at N = 4096, the fc of
+    the unfused-MLP route, at M = 7208 (its launches are K6's route run)."""
     import torch
 
     g = torch.Generator(device="cuda")
     g.manual_seed(8)
-    out = [k3_case(g, THR_BATCH * thr_t), k2_case(g, THR_BATCH, thr_t)[0]]
+    m = THR_BATCH * thr_t
+    out = [k1_case(g, m, 3 * WIDTH), k3_case(g, m),
+           k2_case(g, THR_BATCH, thr_t)[0]]
     for r in out:
         r["launches"] = launches[r["name"]]
-        r["shape"] = (f"M={THR_BATCH * thr_t}" if r["name"] == "ln_mlp_residual"
-                      else f"({THR_BATCH}, {HEADS}, {thr_t}, 64)")
-        print(f"  {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"{r['launches']} launches in the throughput build")
+        r["shape"] = (f"({THR_BATCH}, {HEADS}, {thr_t}, 64)"
+                      if r["name"] == "mha_oneshot_2d" else f"M={m}")
+        print(f"  {r['name']} {r['shape']}: {_times(r)}, {r['launches']} "
+              "launches in the throughput build")
+    fc = k1_case(g, BATCH * CROPS * T, MLP)
+    fc.update(shape=f"M={BATCH * CROPS * T}, N={MLP}", launches=None)
+    print(f"  ln_matmul {fc['shape']} (the unfused route's fc): "
+          f"{_times(fc)}")
     torch.cuda.empty_cache()
-    return out
+    return out + [fc]
 
 
 def k5_check(captured, k5_row):
@@ -1523,7 +1569,7 @@ def main() -> int:
               "sampling, whole canvas, batch 16:")
         captured, thr_t, thr_launches = throughput_run(net, Path(tmp),
                                                       k5_row, rows[:4])
-        print(f"slice 4: K3 and K2 at the throughput build's shapes "
+        print(f"K1, K3 and K2 at the throughput build's shapes "
               f"(M={THR_BATCH * thr_t}; ({THR_BATCH}, {HEADS}, {thr_t}, "
               "64)):")
         thr_rows = throughput_shape_checks(thr_t, thr_launches)
@@ -1558,8 +1604,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{k: r[k] for k in keys} for r in rows + [k5_row] + vit_rows]
-    print(json.dumps({"throughput_shapes": [
-        {k: r[k] for k in ("shape",) + keys} for r in thr_rows]}))
+    print(json.dumps({"more_shapes": [
+        {k: r[k] for k in ("shape", "device_ms") + keys} for r in thr_rows]}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

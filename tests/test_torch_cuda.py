@@ -49,11 +49,18 @@ def _ln_inputs(gen, m, k):
             _randn(gen, k, std=0.1, dtype=torch.float32))
 
 
-@pytest.mark.parametrize("m", [200, 64])
-def test_ln_matmul_kernel(gen, m):
-    x, g, c = _ln_inputs(gen, m, 256)
-    w = _randn(gen, 384, 256, std=1 / 16)
-    bias = _randn(gen, 384, std=0.1, dtype=torch.float32)
+# (M, K, N): width 256 with 128 x 128 tiles (N = 384) and 128 x 256 tiles
+# (N = 768); ViT-L's qkv (N = 3072) and unfused fc (N = 4096) at the map
+# builds' row counts, whose last 128-row tile is partial (7208 % 128 = 40,
+# 11,984 % 128 = 80)
+@pytest.mark.parametrize("m,k,n", [(200, 256, 384), (64, 256, 384),
+                                   (130, 256, 768), (7208, 1024, 3072),
+                                   (11984, 1024, 3072), (7208, 1024, 4096),
+                                   (11984, 1024, 4096), (7208, 1024, 384)])
+def test_ln_matmul_kernel(gen, m, k, n):
+    x, g, c = _ln_inputs(gen, m, k)
+    w = _randn(gen, n, k, std=k ** -0.5)
+    bias = _randn(gen, n, std=0.1, dtype=torch.float32)
     before = fv.ln_matmul.launches
     got = fv.ln_matmul(x, g, c, w, bias, eps=1e-6)
     torch.cuda.synchronize()
@@ -274,11 +281,16 @@ def test_fuse_points_on_the_card_matches_the_cpu(gen):
                                atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("m", [200, 64])
-def test_gelu_matmul_kernel(gen, m):
-    x = _randn(gen, m, 1024)
-    w = _randn(gen, 256, 1024, std=1 / 32)
-    bias = _randn(gen, 256, std=0.1, dtype=torch.float32)
+# (M, K, N): width 256's proj (K = 1024, N = 256), a 128 x 128 tile
+# (N = 384), and ViT-L's proj (K = 4096, N = 1024) at the map builds' row
+# counts
+@pytest.mark.parametrize("m,k,n", [(200, 1024, 256), (64, 1024, 256),
+                                   (130, 1024, 384), (7208, 4096, 1024),
+                                   (11984, 4096, 1024), (7208, 4096, 384)])
+def test_gelu_matmul_kernel(gen, m, k, n):
+    x = _randn(gen, m, k)
+    w = _randn(gen, n, k, std=k ** -0.5)
+    bias = _randn(gen, n, std=0.1, dtype=torch.float32)
     before = fv.gelu_matmul.launches
     got = fv.gelu_matmul(x, w, bias)
     torch.cuda.synchronize()

@@ -119,6 +119,51 @@ def test_bf16_plain_versions_round_like_the_kernels(rng):
                                atol=2e-2, rtol=2 ** -7)
 
 
+@pytest.mark.parametrize("m", [300, 16])
+def test_ln_pass_is_k1s_operand_and_matches_jax(rng, m):
+    """The LN pass's plain version is, bit for bit, the bf16 operand that
+    ln_matmul_ref multiplies (read back through an identity weight, which
+    the f32 product passes exactly), and matches the JAX kernel's
+    normalised rows (its ln_matmul with an identity weight, interpreted)
+    at the ln_matmul tolerance."""
+    k, eps = 256, 1e-6
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    g = rng.normal(size=(k,)).astype(np.float32)
+    c = rng.normal(size=(k,)).astype(np.float32)
+    eye, zero = np.eye(k, dtype=np.float32), np.zeros(k, np.float32)
+    bf = torch.bfloat16
+    rows = tfv.ln_rows_ref(_t(x).to(bf), _t(g), _t(c), eps=eps, dtype=bf)
+    operand = tfv.ln_matmul_ref(_t(x).to(bf), _t(g), _t(c), _t(eye).to(bf),
+                                _t(zero), eps=eps)
+    assert rows.dtype == bf and torch.equal(rows, operand)
+    want = jfv.ln_matmul(jnp.asarray(x), jnp.asarray(g), jnp.asarray(c),
+                         jnp.asarray(eye), jnp.asarray(zero), eps=eps,
+                         interpret=True)
+    got = tfv.ln_rows_ref(_t(x), _t(g), _t(c), eps=eps, dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.1])
+def test_gelu_pass_is_k6s_operand_and_matches_jax(rng, scale):
+    """The GELU pass's plain version is, bit for bit, the bf16 operand
+    that gelu_matmul_ref multiplies, and matches the JAX kernel's GELU
+    (its gelu_matmul with an identity weight, interpreted; polynomial erf
+    within 3.4e-5) at the gelu_matmul tolerance."""
+    m, k = 530, 128
+    x = (rng.normal(size=(m, k)) * scale).astype(np.float32)
+    eye, zero = np.eye(k, dtype=np.float32), np.zeros(k, np.float32)
+    bf = torch.bfloat16
+    rows = tfv.gelu_rows_ref(_t(x).to(bf), dtype=bf)
+    operand = tfv.gelu_matmul_ref(_t(x).to(bf), _t(eye).to(bf), _t(zero))
+    assert rows.dtype == bf and torch.equal(rows, operand)
+    want = jfv.gelu_matmul(jnp.asarray(x), jnp.asarray(eye),
+                           jnp.asarray(zero), interpret=True)
+    got = tfv.gelu_rows_ref(_t(x), dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=1e-5)
+
+
 def _jax_block(attn_impl, width, heads):
     return JaxViTBlock(width=width, heads=heads, mlp_ratio=4, ln_eps=1e-6,
                        dtype=jnp.float32, attn_impl=attn_impl)
