@@ -82,19 +82,10 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-enum { PRO_NONE = 0, PRO_LN = 1, PRO_GELU = 2 };
 enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESID = 2 };
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// (v - mean) * rstd * gamma + beta in f32 with the roundings spelled out,
-// so that the LN pass and the in-shared-memory prologue give the same
-// bits whatever the compiler contracts
-__device__ __forceinline__ float ln_apply(float v, float mu, float rstd,
-                                          float g, float c) {
-  return __fmaf_rn(__fmul_rn(__fsub_rn(v, mu), rstd), g, c);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -103,17 +94,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Per-row LayerNorm in f32: one warp per row, K/32 values per lane in
-// registers (K <= 1024, K % 256 == 0), two-pass variance as the TPU kernel
-// computes it.  ROWS = false writes the row statistics (mean,
-// 1/sqrt(var + eps)) for the GEMM's LN prologue; ROWS = true writes the
-// normalised rows in bf16 (the GEMM's A operand, bitwise what the
-// prologue would make of them).
-template <bool ROWS>
+// The LN pass: per-row LayerNorm in f32, one warp per row, K/32 values per
+// lane in registers (K <= 1024, K % 256 == 0), two-pass variance as the
+// TPU kernel computes it; writes the normalised rows, (x - mean) * rstd *
+// gamma + beta rounded once to bf16 -- the A operand of K1's and K3's fc
+// products.
 __global__ void __launch_bounds__(256)
-ln_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-          const float* __restrict__ beta, float2* __restrict__ stats,
-          bf16* __restrict__ xn, int M, int K, float eps) {
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, bf16* __restrict__ xn, int M,
+               int K, float eps) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
@@ -146,27 +135,22 @@ ln_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
     }
   }
   const float rstd = rsqrtf(warp_sum(q) / K + eps);
-  if constexpr (!ROWS) {
-    if (lane == 0) stats[row] = make_float2(mu, rstd);
-  } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (i < nch) {
-        const int k = i * 256 + lane * 8;
-        const float4 g0 = *reinterpret_cast<const float4*>(gamma + k);
-        const float4 g1 = *reinterpret_cast<const float4*>(gamma + k + 4);
-        const float4 c0 = *reinterpret_cast<const float4*>(beta + k);
-        const float4 c1 = *reinterpret_cast<const float4*>(beta + k + 4);
-        const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-        const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-        uint4 u;
-        bf16* hv = reinterpret_cast<bf16*>(&u);
+  for (int i = 0; i < 4; ++i) {
+    if (i < nch) {
+      const int k = i * 256 + lane * 8;
+      const float4 g0 = *reinterpret_cast<const float4*>(gamma + k);
+      const float4 g1 = *reinterpret_cast<const float4*>(gamma + k + 4);
+      const float4 c0 = *reinterpret_cast<const float4*>(beta + k);
+      const float4 c1 = *reinterpret_cast<const float4*>(beta + k + 4);
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      uint4 u;
+      bf16* hv = reinterpret_cast<bf16*>(&u);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          hv[j] = __float2bfloat16(ln_apply(v[i * 8 + j], mu, rstd, g[j],
-                                            c[j]));
-        *reinterpret_cast<uint4*>(xn + static_cast<size_t>(row) * K + k) = u;
-      }
+      for (int j = 0; j < 8; ++j)
+        hv[j] = __float2bfloat16((v[i * 8 + j] - mu) * rstd * g[j] + c[j]);
+      *reinterpret_cast<uint4*>(xn + static_cast<size_t>(row) * K + k) = u;
     }
   }
 }
@@ -484,13 +468,11 @@ __device__ __forceinline__ void wgmma_tile(float (&acc)[TBN / 2],
   else wgmma_m64n128_ss(acc, da, db, scale_d);
 }
 
-// out[M, N] = epi(A'[M, K] . W[N, K]^T) with A' = LN(A) (PRO_LN, from the
-// precomputed row statistics), GELU(A) (PRO_GELU) or A (PRO_NONE); epi
-// adds the bias, then applies GELU (EPI_GELU) or adds the residual
-// (EPI_RESID), in f32, and rounds to bf16 once.  tmA / tmB are 2-D tensor
-// maps of A (M, K) and W (N, K) with 64 x 128 and 64 x TBN boxes, 128-byte
-// swizzle.  K % 64 == 0 and N % TBN == 0; rows past M load as zeros and are
-// not stored.
+// out[M, N] = epi(A[M, K] . W[N, K]^T): epi adds the bias, then applies
+// GELU (EPI_GELU) or adds the residual (EPI_RESID), in f32, and rounds to
+// bf16 once.  tmA / tmB are 2-D tensor maps of A (M, K) and W (N, K) with
+// 64 x 128 and 64 x TBN boxes, 128-byte swizzle.  K % 64 == 0 and
+// N % TBN == 0; rows past M load as zeros and are not stored.
 //
 // Persistent: block b walks tiles b, b + grid, ... (column-major over the
 // 128 x TBN tiles, so neighbouring blocks share a weight panel); one
@@ -505,13 +487,10 @@ __device__ __forceinline__ void wgmma_tile(float (&acc)[TBN / 2],
 //   so one runs its epilogue while the other's products run.  The order
 //   also keeps each warpgroup's ring parity unambiguous: every stage it
 //   waits for has been filled once more than it last saw.
-template <int PRO, int EPI, int TBN, bool PING>
+template <int EPI, int TBN, bool PING>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                   const __grid_constant__ CUtensorMap tmB,
-                  const float2* __restrict__ stats,
-                  const float* __restrict__ gamma,
-                  const float* __restrict__ beta,
                   const float* __restrict__ bias,
                   const bf16* __restrict__ resid, bf16* __restrict__ out,
                   int M, int N, int K) {
@@ -586,56 +565,10 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
         phase = ((j * nk) / WG_STAGES) & 1;
         if (j > 0) named_bar_sync(3 + cw, 256);  // the other has issued
       }
-      // prologue: this thread transforms 16-byte chunk (tid % 8) of rows
-      // tid / 8 + 16 q of its slabs; in the swizzled layout that chunk
-      // holds logical chunk (tid % 8) ^ (row % 8) of the K slice
-      float2 st[4 * R];
-      const int lchunk = (tid % 8) ^ ((tid / 8) % 8);
-      if constexpr (PRO == PRO_LN) {
-#pragma unroll
-        for (int q = 0; q < 4 * R; ++q) {
-          const int row = m0 + rbase + tid / 8 + 16 * q;
-          st[q] = row < M ? stats[row] : make_float2(0.f, 0.f);
-        }
-      }
       int prev = 0;
       for (int kb = 0; kb < nk; ++kb) {
         mbar_wait(&full[stage], phase);
-        bf16* a = As + stage * A_ELEMS + rbase * WG_BK;
-        if constexpr (PRO != PRO_NONE) {
-          float g[8], c[8];
-          if constexpr (PRO == PRO_LN) {
-            const int k = kb * WG_BK + lchunk * 8;
-            const float4 g0 = *reinterpret_cast<const float4*>(gamma + k);
-            const float4 g1 = *reinterpret_cast<const float4*>(gamma + k + 4);
-            const float4 c0 = *reinterpret_cast<const float4*>(beta + k);
-            const float4 c1 = *reinterpret_cast<const float4*>(beta + k + 4);
-            g[0] = g0.x; g[1] = g0.y; g[2] = g0.z; g[3] = g0.w;
-            g[4] = g1.x; g[5] = g1.y; g[6] = g1.z; g[7] = g1.w;
-            c[0] = c0.x; c[1] = c0.y; c[2] = c0.z; c[3] = c0.w;
-            c[4] = c1.x; c[5] = c1.y; c[6] = c1.z; c[7] = c1.w;
-          }
-#pragma unroll
-          for (int q = 0; q < 4 * R; ++q) {
-            uint4* p = reinterpret_cast<uint4*>(
-                reinterpret_cast<unsigned char*>(a)
-                + (tid / 8 + 16 * q) * 128 + (tid % 8) * 16);
-            uint4 u = *p;
-            bf16* hv = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const float v = __bfloat162float(hv[e]);
-              if constexpr (PRO == PRO_LN)
-                hv[e] = __float2bfloat16(ln_apply(v, st[q].x, st[q].y, g[e],
-                                                  c[e]));
-              else
-                hv[e] = __float2bfloat16(gelu_erf(v));
-            }
-            *p = u;
-          }
-          fence_proxy_async();
-          named_bar_sync(1 + cw, 128);
-        }
+        const bf16* a = As + stage * A_ELEMS + rbase * WG_BK;
         const uint64_t db = sw128_desc(Bs + stage * B_ELEMS);
 #pragma unroll
         for (int r = 0; r < R; ++r) fence_regs(acc[r]);
@@ -963,17 +896,15 @@ int sm_count() {
   return n;
 }
 
-// One launch of wgmma_gemm_kernel<PRO, EPI, TBN, PING>, one block per SM
-// (or per tile, if fewer).  The shared-memory attribute is set once per
+// One launch of wgmma_gemm_kernel<EPI, TBN, PING>, one block per SM (or
+// per tile, if fewer).  The shared-memory attribute is set once per
 // instantiation (a thread-safe static; the port drives one card); the two
 // tensor maps are encoded on each call, since A and out change.
-template <int PRO, int EPI, int TBN, bool PING>
-cudaError_t launch_gemm_cfg(const bf16* A, const float2* stats,
-                            const float* gamma, const float* beta,
-                            const bf16* W, const float* bias,
+template <int EPI, int TBN, bool PING>
+cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const float* bias,
                             const bf16* resid, bf16* out, int M, int N,
                             int K, cudaStream_t stream) {
-  auto kern = wgmma_gemm_kernel<PRO, EPI, TBN, PING>;
+  auto kern = wgmma_gemm_kernel<EPI, TBN, PING>;
   constexpr size_t smem = wg_gemm_smem<TBN>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -986,39 +917,44 @@ cudaError_t launch_gemm_cfg(const bf16* A, const float2* stats,
   if (e != cudaSuccess) return e;
   const int tiles = (M + WG_BM - 1) / WG_BM * (N / TBN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  kern<<<grid, WG_THREADS, smem, stream>>>(ta, tb, stats, gamma, beta, bias,
-                                           resid, out, M, N, K);
+  kern<<<grid, WG_THREADS, smem, stream>>>(ta, tb, bias, resid, out, M, N,
+                                           K);
   return cudaGetLastError();
 }
 
-// out[M, N] = epi(pro(A)[M, K] . W[N, K]^T): 128 x 256 tiles where N
-// allows, else 128 x 128, cooperative.
-template <int PRO, int EPI>
-cudaError_t launch_wgmma_gemm(const bf16* A, const float2* stats,
-                              const float* gamma, const float* beta,
-                              const bf16* W, const float* bias,
+// out[M, N] = epi(A[M, K] . W[N, K]^T).  Cooperative 128 x 256 tiles where
+// N % 256 == 0 (else 128 x 128): per output a 128 x 256 tile reads a
+// quarter less from L2 than a 128 x 128 one, and at equal tile counts per
+// block ping-pong 128 x 128 runs about 6% slower (K1 at M = 11,984) to
+// 40% slower (K6, K = 4096).  A persistent block's time is its share of
+// tiles, so ping-pong is taken where its finer tiles cut the busiest
+// block's share by more than 1/16: K1 at M = 7208 (5.5 wide tiles' worth
+// against 6, 8% faster), not K3's fc at M = 11,984 (11.5 against 12, 3%
+// slower).  probes/gemm_pieces.py measures each schedule.
+template <int EPI>
+cudaError_t launch_wgmma_gemm(const bf16* A, const bf16* W, const float* bias,
                               const bf16* resid, bf16* out, int M, int N,
                               int K, cudaStream_t stream) {
-  if (N % 256 == 0)
-    return launch_gemm_cfg<PRO, EPI, 256, false>(A, stats, gamma, beta, W,
-                                                 bias, resid, out, M, N, K,
-                                                 stream);
-  return launch_gemm_cfg<PRO, EPI, 128, false>(A, stats, gamma, beta, W,
-                                               bias, resid, out, M, N, K,
-                                               stream);
+  if (N % 256 != 0)
+    return launch_gemm_cfg<EPI, 128, false>(A, W, bias, resid, out, M, N, K,
+                                            stream);
+  const int m_tiles = (M + WG_BM - 1) / WG_BM, sms = sm_count();
+  const int share_wide = (m_tiles * (N / 256) + sms - 1) / sms;
+  const int share_narrow = (m_tiles * (N / 128) + sms - 1) / sms;
+  if (16 * share_narrow < 15 * 2 * share_wide)
+    return launch_gemm_cfg<EPI, 128, true>(A, W, bias, resid, out, M, N, K,
+                                           stream);
+  return launch_gemm_cfg<EPI, 256, false>(A, W, bias, resid, out, M, N, K,
+                                          stream);
 }
 
-// The LN pass: row statistics (xn == nullptr) or the normalised rows.
-cudaError_t launch_ln(const bf16* x, const float* gamma, const float* beta,
-                      float2* stats, bf16* xn, int M, int K, float eps,
-                      cudaStream_t stream) {
+// The LN pass: the normalised rows, bf16.
+cudaError_t launch_ln_rows(const bf16* x, const float* gamma,
+                           const float* beta, bf16* xn, int M, int K,
+                           float eps, cudaStream_t stream) {
   if (M == 0) return cudaSuccess;
-  if (xn == nullptr)
-    ln_kernel<false><<<(M + 7) / 8, 256, 0, stream>>>(x, gamma, beta, stats,
-                                                      xn, M, K, eps);
-  else
-    ln_kernel<true><<<(M + 7) / 8, 256, 0, stream>>>(x, gamma, beta, stats,
-                                                     xn, M, K, eps);
+  ln_rows_kernel<<<(M + 7) / 8, 256, 0, stream>>>(x, gamma, beta, xn, M, K,
+                                                  eps);
   return cudaGetLastError();
 }
 
@@ -1056,38 +992,40 @@ extern "C" int avl_ln_matmul(const void* x, const void* gamma,
                              const void* bias, void* xn, void* out, int M,
                              int N, int K, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = launch_ln(static_cast<const bf16*>(x),
-                            static_cast<const float*>(gamma),
-                            static_cast<const float*>(beta), nullptr,
-                            static_cast<bf16*>(xn), M, K, eps, s);
+  cudaError_t e = launch_ln_rows(static_cast<const bf16*>(x),
+                                 static_cast<const float*>(gamma),
+                                 static_cast<const float*>(beta),
+                                 static_cast<bf16*>(xn), M, K, eps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_wgmma_gemm<PRO_NONE, EPI_BIAS>(
-      static_cast<const bf16*>(xn), nullptr, nullptr, nullptr,
-      static_cast<const bf16*>(w), static_cast<const float*>(bias), nullptr,
-      static_cast<bf16*>(out), M, N, K, s));
+  return static_cast<int>(launch_wgmma_gemm<EPI_BIAS>(
+      static_cast<const bf16*>(xn), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), nullptr, static_cast<bf16*>(out), M,
+      N, K, s));
 }
 
+// K3: the LN pass (xn), the fc GEMM with bias and GELU (h), the proj GEMM
+// with bias and the residual.
 extern "C" int avl_ln_mlp_residual(const void* x, const void* gamma,
                                    const void* beta, const void* w1,
                                    const void* b1, const void* w2,
-                                   const void* b2, void* stats, void* h,
+                                   const void* b2, void* xn, void* h,
                                    void* out, int M, int K, int N1,
                                    float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = launch_ln(static_cast<const bf16*>(x), nullptr, nullptr,
-                            static_cast<float2*>(stats), nullptr, M, K, eps,
-                            s);
+  cudaError_t e = launch_ln_rows(static_cast<const bf16*>(x),
+                                 static_cast<const float*>(gamma),
+                                 static_cast<const float*>(beta),
+                                 static_cast<bf16*>(xn), M, K, eps, s);
+  if (e == cudaSuccess)
+    e = launch_wgmma_gemm<EPI_GELU>(
+        static_cast<const bf16*>(xn), static_cast<const bf16*>(w1),
+        static_cast<const float*>(b1), nullptr, static_cast<bf16*>(h), M, N1,
+        K, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_wgmma_gemm<PRO_LN, EPI_GELU>(
-      static_cast<const bf16*>(x), static_cast<const float2*>(stats),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1), nullptr,
-      static_cast<bf16*>(h), M, N1, K, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_wgmma_gemm<PRO_NONE, EPI_RESID>(
-      static_cast<const bf16*>(h), nullptr, nullptr, nullptr,
-      static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), M, K, N1, s));
+  return static_cast<int>(launch_wgmma_gemm<EPI_RESID>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<const bf16*>(x),
+      static_cast<bf16*>(out), M, K, N1, s));
 }
 
 // strides: 12 element strides, (batch, head, token) of q, k, v and out.
@@ -1120,8 +1058,8 @@ extern "C" int avl_gelu_matmul(const void* x, const void* w,
                                    static_cast<bf16*>(g),
                                    static_cast<size_t>(M) * K, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_wgmma_gemm<PRO_NONE, EPI_BIAS>(
-      static_cast<const bf16*>(g), nullptr, nullptr, nullptr,
-      static_cast<const bf16*>(w), static_cast<const float*>(bias), nullptr,
-      static_cast<bf16*>(out), M, N, K, s));
+  return static_cast<int>(launch_wgmma_gemm<EPI_BIAS>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), nullptr, static_cast<bf16*>(out), M,
+      N, K, s));
 }

@@ -23,7 +23,8 @@ the ``torch.nn.Linear`` layout ``(out_features, in_features)``.
   strides multiples of 8 elements.
 - ``ln_mlp_residual`` (K3): ``x + GELU(LN(x) @ w1.T + b1) @ w2.T + b2``
   with exact-erf GELU; the GELU output is rounded to the weight dtype
-  before the second product, as on the TPU.  Weights over 24 MiB take
+  before the second product, as on the TPU.  On the card: K1's LN pass,
+  then two wgmma GEMMs.  Weights over 24 MiB take
   the JAX package's unfused route, ``ln_matmul`` -> ``gelu_matmul`` ->
   residual add.
 - ``gelu_matmul`` (K6): ``GELU(x) @ w.T + bias``, the GELU of the input
@@ -101,12 +102,6 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def _vec_f32(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.float32).contiguous()
-
-
-def _row_stats(x2d: torch.Tensor) -> torch.Tensor:
-    """Scratch for the kernels' per-row LayerNorm (mean, 1/std) in f32."""
-    return torch.empty((x2d.shape[0], 2), dtype=torch.float32,
-                       device=x2d.device)
 
 
 def _layer_norm_f32(x2d: torch.Tensor, scale: torch.Tensor,
@@ -310,9 +305,9 @@ def ln_mlp_residual(x2d: torch.Tensor, ln_scale: torch.Tensor,
     sub-block with its residual.
 
     x2d: (M, K); w1: (N1, K); w2: (K, N1).  On CUDA: bf16, K a multiple of
-    256 up to 1024, N1 a multiple of 128; the kernel pair writes the
-    (M, N1) bf16 GELU output to a scratch buffer between its two wgmma
-    GEMM launches.
+    256 up to 1024, N1 a multiple of 128; the LN pass writes the (M, K)
+    bf16 rows and the fc GEMM the (M, N1) bf16 GELU output to scratch
+    buffers that the next launch reads.
     Weights over 24 MiB take ``ln_matmul`` -> ``gelu_matmul`` -> residual
     add, each rounded to x's dtype, as the JAX package does."""
     wbytes = (w1.numel() + w2.numel()) * w1.element_size()
@@ -338,12 +333,12 @@ def ln_mlp_residual(x2d: torch.Tensor, ln_scale: torch.Tensor,
     g, c = _vec_f32(ln_scale), _vec_f32(ln_bias)
     bb1, bb2 = _vec_f32(b1), _vec_f32(b2)
     _check_cuda("ln_mlp_residual", x2d, w1, w2, g, c, bb1, bb2)
-    stats = _row_stats(x2d)
+    xn = torch.empty_like(x2d)
     h = torch.empty((m, n1), dtype=x2d.dtype, device=x2d.device)
     out = torch.empty_like(x2d)
     rc = _lib().avl_ln_mlp_residual(
         x2d.data_ptr(), g.data_ptr(), c.data_ptr(), w1.data_ptr(),
-        bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), stats.data_ptr(),
+        bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), xn.data_ptr(),
         h.data_ptr(), out.data_ptr(), m, k, n1, float(eps), _stream())
     _raise_on(rc, "ln_mlp_residual")
     ln_mlp_residual.launches += 1

@@ -5,9 +5,14 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and builds every kernel of ``avlmaps_torch/csrc`` (one
-   ``nvcc`` per source, all at once) into ``avlmaps_torch/_build``.
-   Switches TF32 off for matmul and cuDNN (the port never switches it on;
-   the query phase asserts it stays off).
+   ``nvcc`` per source, all at once) into ``avlmaps_torch/_build``; prints
+   each kernel's registers and spill stores from ptxas and fails on a
+   spill or on warning C7508 (``setmaxnreg`` ignored).  Switches TF32 off
+   for matmul and cuDNN (the port never switches it on; the query phase
+   asserts it stays off).  Installs the position gate: after every build
+   (and after each fusion step, recorded on the card) every slot position
+   lies inside the grid, or the run fails with the step, the slot and its
+   neighbours.
 2. Kernel checks: K1-K4 at the map-building shapes (4 frames = 8 crops of
    480^2, M = 7208 token rows, 7776 points per frame into a 1e6-slot
    accumulator), and K7/K8 at the serving query's shape (N = 1e6 voxels x
@@ -15,7 +20,7 @@
    against its plain PyTorch version on the same inputs, with its
    tolerance; times the kernel, the plain version and one PyTorch library
    call for the same function (a yardstick the port never calls) with
-   CUDA events.
+   CUDA events, and the wgmma kernels' device time with the profiler.
 3. Slice 1, map construction: writes a synthetic 720x1080 RGB-D scene,
    builds it with ``VLMapBuilder`` and the ViT-L/16 LSeg in bf16 (seeded
    random weights) at gs=1000, cs=0.05, vh=30, capacity 1e6, D=512, batch
@@ -44,7 +49,10 @@
    frames through the canvas transport (host sampling, whole, batch 16);
    the frame transport (sliding, batch 4, 2 steps) against the canvas
    transport on the same frames and draws; K5 against its plain version
-   and bitwise against K4 on a real 124,416-row sorted batch of the build;
+   bitwise against K4 and bitwise against itself with allocations of the
+   run-start mask's size made between its wrapper and its launch, on a
+   real 124,416-row sorted batch of the build; K1, K3 and K2 at the
+   throughput build's shapes, and K1 at N = 4096 (the unfused fc);
    8-crop ViT-L taps with ``MLP_FUSE=False`` and ``attn_impl="flash"``
    against the default route; a medium f32 LSeg on the card against the
    CPU.
@@ -57,9 +65,11 @@ It needs one card and exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -143,11 +153,13 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 20) -> float:
     """Device time of every kernel ``fn`` launches, per call, from
     ``torch.profiler``: the kernels' own time, free of the host's launch
     gaps that bound ``time_ms`` near 0.1 ms for a wrapper that encodes
-    tensor maps on each call."""
+    tensor maps on each call.  Each kernel counts at its mean time per
+    launch times its launches per call: after the build profiles, a later
+    profile in the same process can miss some of a kernel's records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,9 +169,9 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / iters
+    return sum(e.self_device_time_total / e.count * max(1, round(
+        e.count / iters)) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -536,12 +548,90 @@ def write_scene(root: Path, n: int, seed: int, h: int = 720,
     return root
 
 
-PORT_KERNELS = ("wgmma_gemm_kernel", "gemm_kernel", "ln_stats_kernel",
+PORT_KERNELS = ("wgmma_gemm_kernel", "ln_rows_kernel", "gelu_rows_kernel",
                 "attn_wgmma_kernel", "segment_scatter_kernel")
 # the port's record_function ranges on the build path; the profiler also
 # lists each range among the device events (an annotation spanning its
 # kernels), so device totals leave them out
 BUILD_RANGES = ("build.", "lseg.")
+
+
+class PositionGate:
+    """After every build, every exported slot position lies inside the
+    grid (0 <= row, col < gs, 0 <= h < vh) and is whole.  A slot whose
+    position columns summed two voxels' positions -- two runs of equal
+    slots merged into one -- reads past the grid, as a column of 1035 once
+    did on the 1000-wide grid.
+
+    Installed over the builder's ``fuse_points`` and ``_save``: each
+    fusion step records on the card, with no host sync, how many used
+    slots lie outside and the first of them; each save checks those
+    records and the final state before the export, and fails with the
+    step, the slot and its neighbours' positions."""
+
+    def __init__(self):
+        from avlmaps_torch.map import vlmap_builder as vb
+
+        self.steps, self.record = [], True
+        self.n_builds = self.n_steps = 0
+        fuse, save = vb.fuse_points, vb.VLMapBuilder._save
+
+        def fuse_checked(state, *args, **kw):
+            out = fuse(state, *args, **kw)
+            if self.record:
+                self.steps.append(self.outside(out, kw["gs"], kw["vh"]))
+            return out
+
+        def save_checked(builder, state, gs, vh, mapped):
+            self.check(state, gs, vh)
+            return save(builder, state, gs, vh, mapped)
+
+        vb.fuse_points = fuse_checked
+        vb.VLMapBuilder._save = save_checked
+
+    @staticmethod
+    def outside(state, gs: int, vh: int):
+        """(count, first) of the used slots whose position is not a whole
+        grid cell, as device scalars."""
+        import torch
+
+        d, cap = state.feat_dim, state.accum.shape[0] - 1
+        pos = state.accum[:cap, d + 4:d + 7]
+        bad = ((pos < 0).any(1) | (pos[:, 0] >= gs) | (pos[:, 1] >= gs)
+               | (pos[:, 2] >= vh) | (pos != torch.round(pos)).any(1))
+        bad &= torch.arange(cap, device=pos.device) < state.n_slots
+        return bad.sum(), torch.argmax(bad.to(torch.uint8))
+
+    def check(self, state, gs: int, vh: int) -> None:
+        steps, self.steps = self.steps, []
+        self.n_builds += 1
+        self.n_steps += len(steps)
+        n_final, first = (int(t) for t in self.outside(state, gs, vh))
+        counts = [int(n) for n, _ in steps]
+        if n_final == 0 and not any(counts):
+            return
+        step = next((i for i, n in enumerate(counts) if n), None)
+        slot = first if step is None else int(steps[step][1])
+        d, lo = state.feat_dim, max(slot - 2, 0)
+        near = state.accum[lo:slot + 3, d + 4:d + 7].cpu().tolist()
+        raise AssertionError(
+            f"position gate: {n_final} slots outside the {gs}x{gs}x{vh} "
+            f"grid after the build; the first seen at fusion step {step} of "
+            f"{len(counts)} (None: after the last), slot {slot}; positions "
+            f"of slots {lo}..{lo + len(near) - 1}: {near}")
+
+    @contextlib.contextmanager
+    def paused(self):
+        """No per-step records (a profiled build); the save still checks
+        the final state."""
+        self.record = False
+        try:
+            yield
+        finally:
+            self.record = True
+
+
+GATE = None  # the PositionGate main() installs
 
 
 def profile_build(b, steps: int, attribute: bool = False) -> float:
@@ -553,8 +643,8 @@ def profile_build(b, steps: int, attribute: bool = False) -> float:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with GATE.paused(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
         b.create_mobile_base_map(save_every=0, progress=False)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -986,6 +1076,7 @@ def throughput_run(net, tmp: Path, k5_row, path_rows):
     torch.cuda.synchronize()
     print("  pass: a warm device-sampled batch-16 step ran under "
           "set_sync_debug_mode('error')")
+    GATE.check(state, mc.gs, mc.vh)
     del state, batch, step
 
     steps = THR_FRAMES // THR_BATCH
@@ -1050,9 +1141,44 @@ def throughput_shape_checks(thr_t: int, launches: dict):
     return out + [fc]
 
 
+class _AllocatingLib:
+    """The kernel library with one launch function wrapped: just before it
+    forwards, it allocates ``torch.zeros`` of the run-start mask's size on
+    the launch's stream until one overlaps the mask (at most 16) -- what
+    the loader's producer thread may do between the wrapper's allocation
+    and the launch.  A mask freed before the launch would be zeroed ahead
+    of the kernel (tests/test_torch_cuda.py holds the same)."""
+
+    def __init__(self, lib, name: str, n_rows: int):
+        self._lib, self._name, self._n = lib, name, n_rows
+        self.overlapped = False
+        self.held = []
+
+    def __getattr__(self, attr):
+        import torch
+
+        fn = getattr(self._lib, attr)
+        if attr != self._name:
+            return fn
+
+        def launch(*args):
+            mask = args[2]  # (accum, slots, start, ...)
+            for _ in range(16):
+                z = torch.zeros(self._n, dtype=torch.uint8, device="cuda")
+                self.held.append(z)
+                p = z.data_ptr()
+                if p < mask + self._n and mask < p + self._n:
+                    self.overlapped = True
+                    break
+            return fn(*args)
+
+        return launch
+
+
 def k5_check(captured, k5_row):
-    """K5 on a real sorted batch-16 step against its plain version, and
-    bitwise against K4's kernel on the same batch."""
+    """K5 on a real sorted batch-16 step against its plain version,
+    bitwise against K4's kernel on the same batch, and bitwise against
+    itself with allocations made between its wrapper and its launch."""
     import torch
 
     from avlmaps_torch.ops import segment_scatter as ss
@@ -1078,7 +1204,27 @@ def k5_check(captured, k5_row):
           f"[0, {CAPACITY}) of the same batch")
     if not same:
         raise AssertionError("K5 and K4 disagree on one batch")
-    del got, split
+    del split
+    # the run-start mask outlives the launch: allocations of its size
+    # between the wrapper's mask and the launch, as the loader's producer
+    # thread may make, change no bit
+    lib = _AllocatingLib(ss._lib(), "avl_segment_scatter_add", THR_POINTS)
+    load = ss._lib
+    ss._lib = lambda: lib
+    try:
+        stood = _uncounted(ss.sorted_segment_scatter_add, base.clone(),
+                           sb.slots, update)
+    finally:
+        ss._lib = load
+    same = torch.equal(stood[:CAPACITY], got[:CAPACITY])
+    print(f"  {'pass' if same else 'FAIL'}: K5 with {len(lib.held)} "
+          "allocations of the run-start mask's size just before its launch "
+          f"== K5 bitwise (an allocation overlapped the mask: "
+          f"{lib.overlapped})")
+    if not same or lib.overlapped:
+        raise AssertionError("K5 read a run-start mask freed before its "
+                             "launch")
+    del got, stood
     real = sb.slots[sb.slots != CAPACITY]
     n_rows, n_unique = int(real.numel()), int(torch.unique(real).numel())
     print(f"  real batch: {THR_POINTS} rows, {n_rows} bound for {n_unique} "
@@ -1518,6 +1664,33 @@ def object_query_run(enc, scene: Path):
         raise AssertionError("object query on the built map failed")
 
 
+def ptxas_gate(logs) -> None:
+    """Prints each kernel's registers and spill stores from ptxas, and
+    ptxas's warnings; fails on a kernel that spills, or on warning C7508
+    (setmaxnreg ignored: the wgmma consumers would lose their registers)."""
+    from avlmaps_torch.kernels import build
+
+    bad = []
+    for name, log in logs.items():
+        for fn, info in build.ptxas_report(log).items():
+            if "kernel" not in fn or "registers" not in info:
+                continue
+            spill = info.get("spill_stores", 0)
+            m = re.search(r"\d+([a-z_]+kernel)((?:I(?:L[^E]*E)+E)?)", fn)
+            label = "".join(m.groups()) if m else fn[:60]
+            print(f"  {name}: {label}: {info['registers']} registers, "
+                  f"{spill} bytes spill stores")
+            if spill:
+                bad.append(f"{fn} spills {spill} bytes")
+        for line in log.splitlines():
+            if "warning" in line:
+                print(f"  {name}: {line.strip()}")
+            if "C7508" in line:
+                bad.append(line.strip())
+    if bad:
+        raise AssertionError("ptxas: " + "; ".join(bad))
+
+
 def main() -> int:
     import torch
 
@@ -1543,11 +1716,10 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "warning")):
-                print(f"  {name}: {line.strip()}")
+    ptxas_gate(logs)
 
+    global GATE
+    GATE = PositionGate()
     print("kernel checks (4 frames = 8 crops, M=7208; 31104 points):")
     rows = kernel_checks()
     print("score kernel checks (N=1e6, D=512, C=22 and 41):")
@@ -1598,6 +1770,8 @@ def main() -> int:
             r["launches"] = r["fn"].launches
     launches = {r["name"]: r["launches"] for r in rows[4:]}
     print(f"  slice 2 launches: {launches}")
+    print(f"position gate: {GATE.n_builds} builds, {GATE.n_steps} fusion "
+          "steps checked, every slot position inside the grid")
     if min(launches.values()) < 1:
         raise AssertionError("a kernel of the query path never launched")
 

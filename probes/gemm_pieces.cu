@@ -1,42 +1,35 @@
-// The wgmma GEMM of csrc/fused_vit.cu with each prologue (LN or GELU in
-// shared memory, none), epilogue (bias, bias + GELU, bias + residual) and
-// schedule (cooperative 128 x 256 or 128 x 128, ping-pong 128 x 128) as
-// one entry point, and the LN and GELU passes, for probes/gemm_pieces.py.
+// The wgmma GEMM of csrc/fused_vit.cu under each schedule (cooperative
+// 128 x 256 or 128 x 128, ping-pong 128 x 128) and epilogue (bias, bias +
+// GELU, bias + residual) as one entry point, and the LN and GELU passes,
+// for probes/gemm_pieces.py.
 #include "../avlmaps_torch/csrc/fused_vit.cu"
 
 // sched: 0 cooperative 128 x 256, 1 cooperative 128 x 128, 2 ping-pong
-// 128 x 128.  Returns cudaErrorInvalidValue for a combination the probe
-// does not build.
-extern "C" int probe_gemm(int pro, int epi, int sched, const void* A,
-                          const void* stats, const void* g, const void* b,
-                          const void* W, const void* bias, const void* resid,
-                          void* out, int M, int N, int K, void* stream) {
-#define CASE(P, E, S, T, G)                                                 \
-  if (pro == P && epi == E && sched == S)                                   \
-    return static_cast<int>(launch_gemm_cfg<P, E, T, G>(                    \
-        (const bf16*)A, (const float2*)stats, (const float*)g,              \
-        (const float*)b, (const bf16*)W, (const float*)bias,                \
+// 128 x 128.
+extern "C" int probe_gemm(int epi, int sched, const void* A, const void* W,
+                          const void* bias, const void* resid, void* out,
+                          int M, int N, int K, void* stream) {
+#define CASE(E, S, T, G)                                                    \
+  if (epi == E && sched == S)                                               \
+    return static_cast<int>(launch_gemm_cfg<E, T, G>(                       \
+        (const bf16*)A, (const bf16*)W, (const float*)bias,                 \
         (const bf16*)resid, (bf16*)out, M, N, K, (cudaStream_t)stream));
-#define SCHEDS(P, E) CASE(P, E, 0, 256, false) CASE(P, E, 1, 128, false)    \
-                     CASE(P, E, 2, 128, true)
-  SCHEDS(PRO_NONE, EPI_BIAS)
-  SCHEDS(PRO_LN, EPI_BIAS)
-  SCHEDS(PRO_GELU, EPI_BIAS)
-  SCHEDS(PRO_LN, EPI_GELU)
-  SCHEDS(PRO_NONE, EPI_GELU)
-  SCHEDS(PRO_NONE, EPI_RESID)
+#define SCHEDS(E) CASE(E, 0, 256, false) CASE(E, 1, 128, false)             \
+                  CASE(E, 2, 128, true)
+  SCHEDS(EPI_BIAS)
+  SCHEDS(EPI_GELU)
+  SCHEDS(EPI_RESID)
 #undef SCHEDS
 #undef CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int probe_ln(const void* x, const void* g, const void* b,
-                        void* stats, void* xn, int M, int K, float eps,
-                        void* stream) {
-  return static_cast<int>(launch_ln((const bf16*)x, (const float*)g,
-                                    (const float*)b, (float2*)stats,
-                                    (bf16*)xn, M, K, eps,
-                                    (cudaStream_t)stream));
+extern "C" int probe_ln_rows(const void* x, const void* g, const void* b,
+                             void* xn, int M, int K, float eps,
+                             void* stream) {
+  return static_cast<int>(launch_ln_rows((const bf16*)x, (const float*)g,
+                                         (const float*)b, (bf16*)xn, M, K,
+                                         eps, (cudaStream_t)stream));
 }
 
 extern "C" int probe_gelu_rows(const void* x, void* g, long long n,

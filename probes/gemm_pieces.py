@@ -4,26 +4,25 @@ piece, against cuBLAS.
     python3 probes/gemm_pieces.py               # one card; writes nothing
     python3 probes/gemm_pieces.py --host TREE   # host cost of the wrappers
 
-Builds ``probes/gemm_pieces.cu`` (the GEMM of ``csrc/fused_vit.cu`` with
-every prologue, epilogue and schedule as one entry point, and the LN and
-GELU passes) and prints, at ViT-L width and the two row counts of the map
+Builds ``probes/gemm_pieces.cu`` (the GEMM of ``csrc/fused_vit.cu`` under
+every schedule and epilogue as one entry point, and the LN and GELU
+passes) and prints, at ViT-L width and the two row counts of the map
 builds (8 crops of 480^2: M = 7208; the batch-16 whole canvas: M =
 11,984), the device time of each piece beside cuBLAS's ``F.linear`` for
-the same product and the port's wrapper for the whole kernel:
+the same product, the port's wrapper for the whole kernel and the
+library calls the smoke times beside it:
 
-- K1 (LN -> qkv, N = 3072, K = 1024): the LN pass writing the rows, the
-  row statistics, the GEMM on the rows and the GEMM with the LN prologue,
-  under each schedule (cooperative 128 x 256, cooperative 128 x 128,
-  ping-pong 128 x 128);
-- K6 (GELU -> proj, N = 1024, K = 4096): the GELU pass, the GEMM on the
-  pass's output and the GEMM with the GELU prologue, each schedule;
-- K3 (fc N = 4096 with GELU; proj N = 1024 with the residual): the same
-  choices for its two products.
+- K1 (LN -> qkv, N = 3072, K = 1024): the LN pass, then the GEMM under
+  each schedule (cooperative 128 x 256, cooperative 128 x 128, ping-pong
+  128 x 128);
+- K6 (GELU -> proj, N = 1024, K = 4096): the GELU pass, then the GEMM;
+- K3: the fc (N = 4096, bias + GELU) and the proj (N = 1024, bias +
+  residual) under each schedule.
 
 Device times are read from ``torch.profiler`` (the kernels' own time, no
-launch gap).  It also checks that each route gives the same bits: the
-GEMM on the pass's rows against the GEMM with the prologue, and every
-schedule against the cooperative 128 x 256 one.
+launch gap).  It also checks that every schedule gives the bits of the
+cooperative 128 x 256 one, and that each wrapper gives the bits of its
+pass and GEMM.
 
 ``--host TREE`` imports ``avlmaps_torch`` from the checkout TREE (``.``
 or a ``git archive`` of another commit) and prints the host microseconds
@@ -44,8 +43,7 @@ WIDTH, MLP, EPS = 1024, 4096, 1e-6
 ROWS = (7208, 11984)
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 SCHEDS = {0: "coop 128x256", 1: "coop 128x128", 2: "ping 128x128"}
-NONE, LN, GELU = 0, 1, 2  # prologues
-BIAS, EPI_GELU, RESID = 0, 1, 2  # epilogues
+BIAS, GELU, RESID = 0, 1, 2  # epilogues
 
 
 def build(out_dir: Path) -> ctypes.CDLL:
@@ -63,16 +61,18 @@ def build(out_dir: Path) -> ctypes.CDLL:
                   f"{info.get('spill_stores', 0)} bytes spill stores")
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.probe_gemm.argtypes = [i, i, i] + [p] * 8 + [i] * 3 + [p]
-    lib.probe_ln.argtypes = [p] * 5 + [i, i, f, p]
+    lib.probe_gemm.argtypes = [i, i] + [p] * 5 + [i] * 3 + [p]
+    lib.probe_ln_rows.argtypes = [p] * 4 + [i, i, f, p]
     lib.probe_gelu_rows.argtypes = [p, p, ctypes.c_longlong, p]
-    for fn in (lib.probe_gemm, lib.probe_ln, lib.probe_gelu_rows):
+    for fn in (lib.probe_gemm, lib.probe_ln_rows, lib.probe_gelu_rows):
         fn.restype = i
     return lib
 
 
 def device_ms(fn, iters: int = 20) -> float:
-    """Device time of every kernel ``fn`` launches, per call."""
+    """Device time of every kernel ``fn`` launches, per call: each kernel
+    at its mean time per launch times its launches per call (a profile
+    can miss some records; chip_smoke.py's device_ms does the same)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -82,9 +82,9 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / iters
+    return sum(e.self_device_time_total / e.count * max(1, round(
+        e.count / iters)) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -173,124 +173,98 @@ def main() -> int:
         for m in ROWS:
             x = rand(g, m, WIDTH)
             hin = rand(g, m, MLP)  # K6's input: an fc output
-            stats = torch.empty(m, 2, device="cuda")
             xn, gx = torch.empty_like(x), torch.empty_like(hin)
             outs = {n: torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
                     for n in (WIDTH, 3 * WIDTH, MLP)}
 
-            def gemm(pro, epi, sched, a, wt, bias, resid=None):
+            def gemm(epi, sched, a, wt, bias, resid=None):
                 n, k = wt.shape
                 out = outs[n]
                 rc = lib.probe_gemm(
-                    pro, epi, sched, a.data_ptr(), stats.data_ptr(),
-                    w["gam"].data_ptr(), w["bet"].data_ptr(), wt.data_ptr(),
-                    bias.data_ptr(),
+                    epi, sched, a.data_ptr(), wt.data_ptr(), bias.data_ptr(),
                     None if resid is None else resid.data_ptr(),
                     out.data_ptr(), m, n, k, stream())
                 if rc:
                     raise RuntimeError(f"probe_gemm: cudaError {rc}")
                 return out
 
-            def ln(rows):
-                if lib.probe_ln(x.data_ptr(), w["gam"].data_ptr(),
-                                w["bet"].data_ptr(), stats.data_ptr(),
-                                xn.data_ptr() if rows else None, m, WIDTH,
-                                EPS, stream()):
-                    raise RuntimeError("probe_ln")
+            def ln_rows():
+                if lib.probe_ln_rows(x.data_ptr(), w["gam"].data_ptr(),
+                                     w["bet"].data_ptr(), xn.data_ptr(), m,
+                                     WIDTH, EPS, stream()):
+                    raise RuntimeError("probe_ln_rows")
 
             def gelu_rows():
                 if lib.probe_gelu_rows(hin.data_ptr(), gx.data_ptr(),
                                        m * MLP, stream()):
                     raise RuntimeError("probe_gelu_rows")
 
-            ln(False)
-            ln(True)
+            k1 = lambda: fv.ln_matmul(x, w["gam"], w["bet"], w["wq"],  # noqa: E731
+                                      w["bq"], eps=EPS)
+            k6 = lambda: fv.gelu_matmul(hin, w["w2"], w["b2"])  # noqa: E731
+            k3 = lambda: fv.ln_mlp_residual(  # noqa: E731
+                x, w["gam"], w["bet"], w["w1"], w["b1"], w["w2"], w["b2"],
+                eps=EPS)
+            ln_rows()
             gelu_rows()
-            # the same bits by every route and schedule
-            same = {}
-            for label, pro, epi, a, wt, bias, resid in (
-                    ("K1", LN, BIAS, x, w["wq"], w["bq"], None),
-                    ("K6", GELU, BIAS, hin, w["w2"], w["b2"], None),
-                    ("K3 fc", LN, EPI_GELU, x, w["w1"], w["b1"], None)):
-                rows = xn if pro == LN else gx
-                ref = gemm(pro, epi, 0, a, wt, bias).clone()
-                for sched in SCHEDS:
-                    same[f"{label} prologue {SCHEDS[sched]}"] = torch.equal(
-                        gemm(pro, epi, sched, a, wt, bias), ref)
-                    same[f"{label} pass {SCHEDS[sched]}"] = torch.equal(
-                        gemm(NONE, epi, sched, rows, wt, bias), ref)
-            ref = gemm(NONE, RESID, 0, hin, w["w2"], w["b2"], x).clone()
-            for sched in (1, 2):
-                same[f"K3 proj {SCHEDS[sched]}"] = torch.equal(
-                    gemm(NONE, RESID, sched, hin, w["w2"], w["b2"], x), ref)
+            # the same bits under every schedule, and from each wrapper
+            cases = {"K1": (BIAS, xn, w["wq"], w["bq"], None),
+                     "K6": (BIAS, gx, w["w2"], w["b2"], None),
+                     "K3 fc": (GELU, xn, w["w1"], w["b1"], None),
+                     "K3 proj": (RESID, hin, w["w2"], w["b2"], x)}
+            same, refs = {}, {}
+            for label, (epi, a, wt, bias, resid) in cases.items():
+                refs[label] = gemm(epi, 0, a, wt, bias, resid).clone()
+                for sched in (1, 2):
+                    same[f"{label} {SCHEDS[sched]}"] = torch.equal(
+                        gemm(epi, sched, a, wt, bias, resid), refs[label])
+            same["K1 wrapper"] = torch.equal(k1(), refs["K1"])
+            same["K6 wrapper"] = torch.equal(k6(), refs["K6"])
             torch.cuda.synchronize()
-            print(f"M={m}: bitwise equal to the prologue route under "
-                  f"{SCHEDS[0]}: " + ", ".join(
-                      f"{k} {v}" for k, v in same.items()))
+            print(f"M={m}: bitwise equal to {SCHEDS[0]}: " + ", ".join(
+                f"{k} {v}" for k, v in same.items()))
             if not all(same.values()):
-                print("  FAIL: a route or schedule changed the bits")
+                print("  FAIL: a schedule or wrapper changed the bits")
 
             bq, b1, b2 = (w[k].to(torch.bfloat16) for k in ("bq", "b1", "b2"))
-            pieces = [
-                ("K1 LN pass writing the rows", 0, lambda: ln(True)),
-                ("K1 row stats only", 0, lambda: ln(False)),
-            ]
-            for sched, sname in SCHEDS.items():
-                pieces += [
-                    (f"K1 GEMM on LN rows, {sname}", 3 * WIDTH * WIDTH,
-                     lambda s=sched: gemm(NONE, BIAS, s, xn, w["wq"],
-                                          w["bq"])),
-                    (f"K1 GEMM, LN prologue, {sname}", 3 * WIDTH * WIDTH,
-                     lambda s=sched: gemm(LN, BIAS, s, x, w["wq"], w["bq"])),
-                ]
+            pieces = [("K1 LN pass writing the rows", 0, ln_rows)]
+            pieces += [(f"K1 GEMM, {sname}", 3 * WIDTH * WIDTH,
+                        lambda s=sched: gemm(BIAS, s, xn, w["wq"], w["bq"]))
+                       for sched, sname in SCHEDS.items()]
             pieces += [
-                ("K1 cuBLAS F.linear on LN rows", 3 * WIDTH * WIDTH,
+                ("K1 cuBLAS F.linear on the rows", 3 * WIDTH * WIDTH,
                  lambda: F.linear(xn, w["wq"], bq)),
-                ("K1 ln_matmul wrapper", 3 * WIDTH * WIDTH,
-                 lambda: fv.ln_matmul(x, w["gam"], w["bet"], w["wq"],
-                                      w["bq"], eps=EPS)),
+                ("K1 ln_matmul wrapper", 3 * WIDTH * WIDTH, k1),
                 ("K1 library: layer_norm + linear", 3 * WIDTH * WIDTH,
                  lambda: F.linear(F.layer_norm(
                      x, (WIDTH,), w["gam"].to(x.dtype),
                      w["bet"].to(x.dtype), EPS), w["wq"], bq)),
                 ("K6 GELU pass", 0, gelu_rows),
             ]
-            for sched, sname in SCHEDS.items():
-                pieces += [
-                    (f"K6 GEMM on GELU rows, {sname}", MLP * WIDTH,
-                     lambda s=sched: gemm(NONE, BIAS, s, gx, w["w2"],
-                                          w["b2"])),
-                    (f"K6 GEMM, GELU prologue, {sname}", MLP * WIDTH,
-                     lambda s=sched: gemm(GELU, BIAS, s, hin, w["w2"],
-                                          w["b2"])),
-                ]
+            pieces += [(f"K6 GEMM, {sname}", MLP * WIDTH,
+                        lambda s=sched: gemm(BIAS, s, gx, w["w2"], w["b2"]))
+                       for sched, sname in SCHEDS.items()]
             pieces += [
-                ("K6 cuBLAS F.linear on GELU rows", MLP * WIDTH,
+                ("K6 cuBLAS F.linear on the GELU rows", MLP * WIDTH,
                  lambda: F.linear(gx, w["w2"], b2)),
-                ("K6 gelu_matmul wrapper", MLP * WIDTH,
-                 lambda: fv.gelu_matmul(hin, w["w2"], w["b2"])),
+                ("K6 gelu_matmul wrapper", MLP * WIDTH, k6),
                 ("K6 library: gelu + linear", MLP * WIDTH,
                  lambda: F.linear(F.gelu(hin), w["w2"], b2)),
             ]
             for sched, sname in SCHEDS.items():
                 pieces += [
-                    (f"K3 fc on LN rows + GELU, {sname}", MLP * WIDTH,
-                     lambda s=sched: gemm(NONE, EPI_GELU, s, xn, w["w1"],
-                                          w["b1"])),
-                    (f"K3 fc, LN prologue + GELU, {sname}", MLP * WIDTH,
-                     lambda s=sched: gemm(LN, EPI_GELU, s, x, w["w1"],
-                                          w["b1"])),
+                    (f"K3 fc + GELU, {sname}", MLP * WIDTH,
+                     lambda s=sched: gemm(GELU, s, xn, w["w1"], w["b1"])),
                     (f"K3 proj + b2 + residual, {sname}", MLP * WIDTH,
-                     lambda s=sched: gemm(NONE, RESID, s, hin, w["w2"],
-                                          w["b2"], x)),
+                     lambda s=sched: gemm(RESID, s, hin, w["w2"], w["b2"],
+                                          x)),
                 ]
             pieces += [
                 ("K3 fc cuBLAS F.linear", MLP * WIDTH,
                  lambda: F.linear(xn, w["w1"], b1)),
-                ("K3 ln_mlp_residual wrapper", 2 * MLP * WIDTH,
-                 lambda: fv.ln_mlp_residual(x, w["gam"], w["bet"], w["w1"],
-                                            w["b1"], w["w2"], w["b2"],
-                                            eps=EPS)),
+                ("K3 proj cuBLAS F.linear", MLP * WIDTH,
+                 lambda: F.linear(hin, w["w2"], b2)),
+                ("K3 ln_mlp_residual wrapper", 2 * MLP * WIDTH, k3),
             ]
             for name, macs, fn in pieces:
                 ms = device_ms(fn)

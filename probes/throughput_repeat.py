@@ -11,7 +11,8 @@ one call on one card:
 TREE is a checkout of the repository (``.`` for this one, or a
 ``git archive`` of another commit unpacked into an ignored directory).
 Prints each repeat's lines from the smoke and a count of failed repeats;
-exits 1 if any failed.
+exits 1 if any failed.  Where the tree's smoke has the position gate, it
+checks every slot position after each fusion step of each build.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ def main() -> int:
     from avlmaps_torch.ops import fused_vit as fv
     from avlmaps_torch.ops import segment_scatter as ss
 
+    if hasattr(cs, "PositionGate"):  # older trees have no gate
+        cs.GATE = cs.PositionGate()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()
