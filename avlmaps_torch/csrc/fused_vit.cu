@@ -16,20 +16,35 @@
 // over 69 MB), so the bound is the 989 TFLOP/s bf16 peak, which only
 // wgmma reaches.
 //
-// K2 and K3 are Hopper designs: TMA feeds shared memory (128-byte swizzle,
+// All four are Hopper designs: TMA feeds shared memory (128-byte swizzle,
 // mbarrier rings, one producer thread) and wgmma computes with f32
-// accumulators in registers.  K1 and K6 still run the older WMMA GEMM
-// (mma.sync over a 3-stage cp.async ring); wgmma_gemm_kernel takes its
-// prologue and epilogue as template parameters so that they can move onto
-// it.
+// accumulators in registers.
 //
-// K1: two launches.  ln_stats_kernel computes each row's mean and
-//     1/sqrt(var + eps) in f32 (two-pass, one warp per row; 8 bytes a row
-//     go to device memory).  The WMMA GEMM block owns a 64x128 output
-//     tile; x and W stream through a 3-stage cp.async ring in 32-deep
-//     slices, and each x slice is normalised in shared memory -- (x - mean)
-//     * rstd * gamma + beta in f32, rounded to bf16 -- before the tensor
-//     cores read it.  The epilogue adds the bias in f32 and rounds once.
+// K1, K3, K6: a pass that writes the GEMM's bf16 A operand, then the
+//     persistent wgmma_gemm_kernel.  K1 and K3 run ln_rows_kernel (row
+//     statistics in f32, two-pass, one warp per row; (x - mean) * rstd *
+//     gamma + beta rounded once to bf16: 2 x 15 MB at M = 7208); K6 runs
+//     gelu_rows_kernel (bf16(0.5 x (1 + erff(x / sqrt 2))): 2 x 59 MB; the
+//     TPU kernel's 10-term polynomial erf was a VPU economy, erff is K3's
+//     GELU).  A pass beat normalising or activating each landed x tile in
+//     shared memory inside the GEMM at every measured shape: there the
+//     consumers did it on the tensor cores' critical path, once per
+//     column tile (probes/gemm_pieces.py; PERF.md).  The GEMM: one block
+//     per SM walks 128 x TBN output tiles (neighbouring blocks on
+//     neighbouring row tiles of one weight panel); one producer thread
+//     keeps a 4-stage ring of 64-deep TMA tiles in flight; two consumer
+//     warpgroups run wgmma with the accumulators in registers (setmaxnreg
+//     moves registers from the producer to them), cooperatively on a
+//     128 x 256 tile or, where that shortens the last wave, ping-pong on
+//     128 x 128 tiles (launch_wgmma_gemm).  Epilogues add the bias, then
+//     apply GELU or add the residual x, in f32 from the registers, and
+//     store bf16 pairs.  K3 is the LN pass, the fc with bias + GELU
+//     writing the (M, 4096) bf16 intermediate -- the bf16 values the TPU
+//     kernel feeds its second MXU product -- and the proj with bias + x.
+//     One fused K3 would need the (rows, 1024) f32 accumulator of the
+//     second product resident beside the fc chunks -- 256 KB for 64 rows,
+//     the whole register file -- so full fusion is left to a cluster /
+//     distributed-shared-memory design.
 // K2: attn_wgmma_kernel, FlashAttention-3's structure.  A block owns
 //     (batch, head, 128 queries): two consumer warpgroups of 64 query rows
 //     and one producer warp.  Q arrives once by TMA; K and V tiles of 64
@@ -45,38 +60,21 @@
 //     no pad: tokens >= T of a crop load as zeros, not as the next crop's
 //     rows, and the output store stops at T.  Keys >= t_real are masked to
 //     -inf in the last key tile only.
-// K3: ln_stats_kernel, then two launches of wgmma_gemm_kernel: LN -> fc ->
-//     +b1 -> exact-erf GELU (erff) writes the (M, 4096) bf16 intermediate
-//     -- the same bf16 values the TPU kernel feeds its second MXU product
-//     -- then h.W2^T + b2 + x.  The GEMM is persistent (one block per SM
-//     walking 128 x BN output tiles, BN = 256 where N allows, neighbouring
-//     blocks on neighbouring row tiles of one weight panel); one producer
-//     thread keeps a 4-stage ring of 64-deep TMA tiles in flight, and two
-//     consumer warpgroups (64 rows each) run wgmma with the accumulator in
-//     registers (setmaxnreg moves registers from the producer to them).
-//     The LN prologue normalises each landed x tile in shared memory, in
-//     its swizzled layout, and fences it (fence.proxy.async) before wgmma
-//     reads it; the epilogues add the bias and apply GELU, or add the bias
-//     and the residual x, in f32 from the accumulator registers and store
-//     bf16.  The intermediate's round trip costs 2 x 59 MB at M = 7208.
-//     One fused kernel would need the (rows, 1024) f32 accumulator of the
-//     second product resident beside the fc chunks -- 256 KB for 64 rows,
-//     the whole register file -- so full fusion is left to a cluster /
-//     distributed-shared-memory design.
-// K6: the WMMA GEMM with a GELU prologue: each landed x slice becomes
-//     bf16(0.5 x (1 + erff(x / sqrt 2))) in shared memory.  The TPU
-//     kernel's 10-term polynomial erf was a VPU economy; erff is K3's GELU.
 //
 // Every launcher returns a cudaError_t (0 on success) so the Python
-// wrapper can raise on a refused launch.  Tensor maps are encoded on each
-// call through the driver entry point cuTensorMapEncodeTiled (no -lcuda)
-// and passed by value as __grid_constant__ parameters.
+// wrapper can raise on a refused launch.  Tensor maps come from the
+// driver entry point cuTensorMapEncodeTiled (no -lcuda), through a cache
+// keyed by everything the encode reads, and are passed by value as
+// __grid_constant__ parameters.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 #include <math.h>
+
+#include <mutex>
 
 typedef __nv_bfloat16 bf16;
 
@@ -260,12 +258,6 @@ __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
-// Signals a named barrier without waiting: the threads that bar.sync on
-// it go on once n threads in all have arrived.
-__device__ __forceinline__ void named_bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -357,6 +349,54 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 192] (+)= A[64 x 16] . B[16 x 192], A and B K-major in shared
+// memory (128-byte swizzle); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n192_ss(float (&d)[96],
+                                                uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -465,6 +505,7 @@ __device__ __forceinline__ void wgmma_tile(float (&acc)[TBN / 2],
                                            uint64_t da, uint64_t db,
                                            int scale_d) {
   if constexpr (TBN == 256) wgmma_m64n256_ss(acc, da, db, scale_d);
+  else if constexpr (TBN == 192) wgmma_m64n192_ss(acc, da, db, scale_d);
   else wgmma_m64n128_ss(acc, da, db, scale_d);
 }
 
@@ -476,27 +517,15 @@ __device__ __forceinline__ void wgmma_tile(float (&acc)[TBN / 2],
 //
 // Persistent: block b walks tiles b, b + grid, ... (column-major over the
 // 128 x TBN tiles, so neighbouring blocks share a weight panel); one
-// producer thread keeps the TMA ring full across them.  Two schedules:
-// - cooperative (PING false): both consumer warpgroups take every stage,
-//   64 rows each of one 128 x TBN tile, and run their epilogues together
-//   with the tensor cores idle;
-// - ping-pong (PING true, TBN = 128): consumer c owns the block's tiles
-//   c, c + 2, ... whole (two 64-row slabs, 128 accumulators a thread) and
-//   takes only their stages; an ordered pair of named barriers lets one
-//   warpgroup issue its mainloop only after the other has issued its own,
-//   so one runs its epilogue while the other's products run.  The order
-//   also keeps each warpgroup's ring parity unambiguous: every stage it
-//   waits for has been filled once more than it last saw.
-template <int EPI, int TBN, bool PING>
+// producer thread keeps the TMA ring full across them, and both consumer
+// warpgroups take every stage, 64 rows each of the tile.
+template <int EPI, int TBN>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                   const __grid_constant__ CUtensorMap tmB,
                   const float* __restrict__ bias,
                   const bf16* __restrict__ resid, bf16* __restrict__ out,
                   int M, int N, int K) {
-  static_assert(!PING || TBN == 128,
-                "a ping-pong consumer holds its 128 x 128 tile in registers");
-  constexpr int R = PING ? 2 : 1;  // 64-row slabs a consumer computes
   constexpr int A_ELEMS = WG_BM * WG_BK, B_ELEMS = TBN * WG_BK;
   constexpr uint32_t STAGE_BYTES = (A_ELEMS + B_ELEMS) * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
@@ -511,13 +540,11 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
   const int m_tiles = (M + WG_BM - 1) / WG_BM;
   const int n_tiles_total = m_tiles * (N / TBN);
   const int nk = K / WG_BK;
-  // the launch gives every block at least one tile
-  const int n_local = (n_tiles_total - 1 - blockIdx.x) / gridDim.x + 1;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < WG_STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], PING ? 4 : 8);  // one arrival per consuming warp
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
     mbar_init_fence();
   }
@@ -529,8 +556,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
     if (tid == 0) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int j = 0; j < n_local; ++j) {
-        const int tile = blockIdx.x + j * gridDim.x;
+      for (int tile = blockIdx.x; tile < n_tiles_total; tile += gridDim.x) {
         const int m0 = (tile % m_tiles) * WG_BM;
         const int n0 = (tile / m_tiles) * TBN;
         for (int kb = 0; kb < nk; ++kb) {
@@ -549,43 +575,30 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int cw = wg - 1;
-    const int rbase = PING ? 0 : cw * 64;  // first tile row this consumer owns
+    const int cw = wg - 1;  // this consumer's 64-row half of the tile
     const int warp = tid / 32, lane = tid % 32;
-    float acc[R][TBN / 2];
+    float acc[TBN / 2];
     int stage = 0;
     uint32_t phase = 0;
-    for (int j = PING ? cw : 0; j < n_local; j += PING ? 2 : 1) {
-      const int tile = blockIdx.x + j * gridDim.x;
+    for (int tile = blockIdx.x; tile < n_tiles_total; tile += gridDim.x) {
       const int m0 = (tile % m_tiles) * WG_BM;
       const int n0 = (tile / m_tiles) * TBN;
-      if constexpr (PING) {
-        // this tile's stages start at ring position j * nk
-        stage = (j * nk) % WG_STAGES;
-        phase = ((j * nk) / WG_STAGES) & 1;
-        if (j > 0) named_bar_sync(3 + cw, 256);  // the other has issued
-      }
+      const bf16* a0 = As + cw * 64 * WG_BK;
       int prev = 0;
       for (int kb = 0; kb < nk; ++kb) {
         mbar_wait(&full[stage], phase);
-        const bf16* a = As + stage * A_ELEMS + rbase * WG_BK;
+        const uint64_t da = sw128_desc(a0 + stage * A_ELEMS);
         const uint64_t db = sw128_desc(Bs + stage * B_ELEMS);
-#pragma unroll
-        for (int r = 0; r < R; ++r) fence_regs(acc[r]);
+        fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < WG_BK / 16; ++kk)
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            wgmma_tile<TBN>(acc[r], sw128_desc(a + r * 64 * WG_BK) + 2 * kk,
-                            db + 2 * kk, (kb | kk) != 0);
+          wgmma_tile<TBN>(acc, da + 2 * kk, db + 2 * kk, (kb | kk) != 0);
         wgmma_commit();
-#pragma unroll
-        for (int r = 0; r < R; ++r) fence_regs(acc[r]);
+        fence_regs(acc);
         // keep one group in flight: the previous stage is now free
         wgmma_wait<1>();
-#pragma unroll
-        for (int r = 0; r < R; ++r) fence_regs(acc[r]);
+        fence_regs(acc);
         if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
         prev = stage;
         if (++stage == WG_STAGES) {
@@ -593,43 +606,36 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
           phase ^= 1;
         }
       }
-      if constexpr (PING) {
-        if (j + 1 < n_local) named_bar_arrive(3 + (1 - cw), 256);
-      }
       wgmma_wait<0>();
-#pragma unroll
-      for (int r = 0; r < R; ++r) fence_regs(acc[r]);
+      fence_regs(acc);
       if (lane == 0) mbar_arrive(&empty[prev]);
 
       // epilogue from the accumulator registers: d[4j + {0,1}] is (row,
       // col + {0,1}) and d[4j + {2,3}] is (row + 8, col + {0,1})
+      const int row0 = m0 + cw * 64 + warp * 16 + lane / 4;
       const int colb = n0 + 2 * (lane % 4);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row0 = m0 + rbase + r * 64 + warp * 16 + lane / 4;
+      for (int j = 0; j < TBN / 8; ++j) {
+        const int col = colb + 8 * j;
+        const float2 bb = *reinterpret_cast<const float2*>(bias + col);
 #pragma unroll
-        for (int jj = 0; jj < TBN / 8; ++jj) {
-          const int col = colb + 8 * jj;
-          const float2 bb = *reinterpret_cast<const float2*>(bias + col);
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int row = row0 + 8 * hh;
-            if (row >= M) continue;
-            float v0 = acc[r][4 * jj + 2 * hh] + bb.x;
-            float v1 = acc[r][4 * jj + 2 * hh + 1] + bb.y;
-            const size_t off = static_cast<size_t>(row) * N + col;
-            if constexpr (EPI == EPI_GELU) {
-              v0 = gelu_erf(v0);
-              v1 = gelu_erf(v1);
-            } else if constexpr (EPI == EPI_RESID) {
-              const float2 rr = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(resid + off));
-              v0 += rr.x;
-              v1 += rr.y;
-            }
-            *reinterpret_cast<__nv_bfloat162*>(out + off) =
-                __floats2bfloat162_rn(v0, v1);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row0 + 8 * hh;
+          if (row >= M) continue;
+          float v0 = acc[4 * j + 2 * hh] + bb.x;
+          float v1 = acc[4 * j + 2 * hh + 1] + bb.y;
+          const size_t off = static_cast<size_t>(row) * N + col;
+          if constexpr (EPI == EPI_GELU) {
+            v0 = gelu_erf(v0);
+            v1 = gelu_erf(v1);
+          } else if constexpr (EPI == EPI_RESID) {
+            const float2 r = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(resid + off));
+            v0 += r.x;
+            v1 += r.y;
           }
+          *reinterpret_cast<__nv_bfloat162*>(out + off) =
+              __floats2bfloat162_rn(v0, v1);
         }
       }
     }
@@ -852,12 +858,63 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Encoded maps by everything an encode reads (address, rank, dims, byte
+// strides, box): a map holds no more than that, so an entry is right for
+// any tensor that has the same key, whatever the memory at that address
+// held before.  Direct-mapped; one encode costs several microseconds of
+// host time and a ViT block makes ten (probes/gemm_pieces.py --host).
+struct MapKey {
+  const void* base;
+  uint64_t dims[4], strides[3];
+  int rank;
+  uint32_t box_rows;
+};
+
+struct MapCache {
+  static constexpr int SIZE = 1024;
+  std::mutex mu;
+  MapKey key[SIZE];
+  CUtensorMap map[SIZE];
+  bool used[SIZE] = {};
+};
+
+MapCache& map_cache() {
+  static MapCache cache;
+  return cache;
+}
+
+int map_slot(const MapKey& k) {
+  uint64_t h = 1469598103934665603ull;  // FNV-1a over the key's bytes
+  const unsigned char* p = reinterpret_cast<const unsigned char*>(&k);
+  for (size_t i = 0; i < sizeof(MapKey); ++i)
+    h = (h ^ p[i]) * 1099511628211ull;
+  return static_cast<int>(h % MapCache::SIZE);
+}
+
 // A bf16 tensor map with rows of 64 elements (128 bytes, 128-byte
 // swizzle): dims and byte strides innermost first (dims[0] == 64), box
 // {64, box_rows, 1, ...}.  Elements outside dims load as zeros.
 cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
                      const uint64_t* dims, const uint64_t* strides,
                      uint32_t box_rows) {
+  MapKey k;
+  memset(&k, 0, sizeof(k));  // padding too: the slot hashes bytes
+  k.base = base;
+  k.rank = rank;
+  k.box_rows = box_rows;
+  for (int i = 0; i < rank; ++i) {
+    k.dims[i] = dims[i];
+    if (i > 0) k.strides[i - 1] = strides[i - 1];
+  }
+  MapCache& c = map_cache();
+  const int slot = map_slot(k);
+  {
+    std::lock_guard<std::mutex> lock(c.mu);
+    if (c.used[slot] && memcmp(&c.key[slot], &k, sizeof(k)) == 0) {
+      *map = c.map[slot];
+      return cudaSuccess;
+    }
+  }
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[4], s[3];
@@ -874,7 +931,12 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
                          CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(c.mu);
+  c.key[slot] = k;
+  c.map[slot] = *map;
+  c.used[slot] = true;
+  return cudaSuccess;
 }
 
 // A row-major (rows, cols) bf16 matrix, cols % 64 == 0, box 64 x box_rows.
@@ -896,15 +958,15 @@ int sm_count() {
   return n;
 }
 
-// One launch of wgmma_gemm_kernel<EPI, TBN, PING>, one block per SM (or
-// per tile, if fewer).  The shared-memory attribute is set once per
+// One launch of wgmma_gemm_kernel<EPI, TBN>, one block per SM (or per
+// tile, if fewer).  The shared-memory attribute is set once per
 // instantiation (a thread-safe static; the port drives one card); the two
-// tensor maps are encoded on each call, since A and out change.
-template <int EPI, int TBN, bool PING>
+// tensor maps come from the map cache.
+template <int EPI, int TBN>
 cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const float* bias,
                             const bf16* resid, bf16* out, int M, int N,
                             int K, cudaStream_t stream) {
-  auto kern = wgmma_gemm_kernel<EPI, TBN, PING>;
+  auto kern = wgmma_gemm_kernel<EPI, TBN>;
   constexpr size_t smem = wg_gemm_smem<TBN>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -922,30 +984,31 @@ cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const float* bias,
   return cudaGetLastError();
 }
 
-// out[M, N] = epi(A[M, K] . W[N, K]^T).  Cooperative 128 x 256 tiles where
-// N % 256 == 0 (else 128 x 128): per output a 128 x 256 tile reads a
-// quarter less from L2 than a 128 x 128 one, and at equal tile counts per
-// block ping-pong 128 x 128 runs about 6% slower (K1 at M = 11,984) to
-// 40% slower (K6, K = 4096).  A persistent block's time is its share of
-// tiles, so ping-pong is taken where its finer tiles cut the busiest
-// block's share by more than 1/16: K1 at M = 7208 (5.5 wide tiles' worth
-// against 6, 8% faster), not K3's fc at M = 11,984 (11.5 against 12, 3%
-// slower).  probes/gemm_pieces.py measures each schedule.
+// out[M, N] = epi(A[M, K] . W[N, K]^T) on 128 x 256 tiles where N % 256 ==
+// 0, else 128 x 192 where N % 192 == 0, else 128 x 128.  Per output a
+// wider tile reads less from L2, which is what bounds the mainloop (a
+// 128 x 128 tile reads a third more than a 128 x 256 one, a 128 x 192 one
+// a ninth more).  A persistent block's time is its share of tiles, so
+// 128 x 192 is taken over 128 x 256 where it cuts the busiest block's
+// share by more than 1/16: K1's qkv (N = 3072) at M = 7208 (7 tiles of
+// three quarters the work, against 6: 10% faster) but not at M = 11,984
+// (12 such tiles, against 9: 2% slower).  Ping-pong consumers on 128 x 128 tiles
+// (each warpgroup's epilogue under the other's products) measured 1-3%
+// slower than 128 x 192 at M = 7208 and 6-40% slower than 128 x 256
+// elsewhere (probes/gemm_pieces.py; PERF.md).
 template <int EPI>
 cudaError_t launch_wgmma_gemm(const bf16* A, const bf16* W, const float* bias,
                               const bf16* resid, bf16* out, int M, int N,
                               int K, cudaStream_t stream) {
-  if (N % 256 != 0)
-    return launch_gemm_cfg<EPI, 128, false>(A, W, bias, resid, out, M, N, K,
-                                            stream);
   const int m_tiles = (M + WG_BM - 1) / WG_BM, sms = sm_count();
-  const int share_wide = (m_tiles * (N / 256) + sms - 1) / sms;
-  const int share_narrow = (m_tiles * (N / 128) + sms - 1) / sms;
-  if (16 * share_narrow < 15 * 2 * share_wide)
-    return launch_gemm_cfg<EPI, 128, true>(A, W, bias, resid, out, M, N, K,
-                                           stream);
-  return launch_gemm_cfg<EPI, 256, false>(A, W, bias, resid, out, M, N, K,
-                                          stream);
+  auto share = [&](int tbn) { return (m_tiles * (N / tbn) + sms - 1) / sms; };
+  const bool narrower = N % 192 == 0
+      && (N % 256 != 0 || 16 * 3 * share(192) < 15 * 4 * share(256));
+  if (N % 256 == 0 && !narrower)
+    return launch_gemm_cfg<EPI, 256>(A, W, bias, resid, out, M, N, K, stream);
+  if (N % 192 == 0)
+    return launch_gemm_cfg<EPI, 192>(A, W, bias, resid, out, M, N, K, stream);
+  return launch_gemm_cfg<EPI, 128>(A, W, bias, resid, out, M, N, K, stream);
 }
 
 // The LN pass: the normalised rows, bf16.

@@ -86,18 +86,21 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, *args) -> None:
+    """Raise ValueError(msg.format(*args)) unless ``cond``: the message is
+    formatted only on failure, since every launch checks its inputs."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args))
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
-        _require(t.device == dev, f"{name}: tensors on {t.device} and {dev}")
+        _require(t.device == dev, "{}: tensors on {} and {}", name, t.device,
+                 dev)
         _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
-                 f"{name}: tensor of shape {tuple(t.shape)} is not "
-                 "contiguous and 16-byte aligned")
+                 "{}: tensor of shape {} is not contiguous and 16-byte "
+                 "aligned", name, tuple(t.shape))
 
 
 def _vec_f32(v: torch.Tensor) -> torch.Tensor:
@@ -143,18 +146,18 @@ def ln_matmul(x2d: torch.Tensor, ln_scale: torch.Tensor,
     GEMM reads."""
     if x2d.device.type == "cpu":
         return ln_matmul_ref(x2d, ln_scale, ln_bias, w, bias, eps=eps)
-    _require(x2d.is_cuda, f"ln_matmul: unsupported device {x2d.device}")
+    _require(x2d.is_cuda, "ln_matmul: unsupported device {}", x2d.device)
     m, k = x2d.shape
     n = w.shape[0]
     _require(x2d.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
-             f"ln_matmul: kernel takes bf16 x and w, got {x2d.dtype}, "
-             f"{w.dtype}")
+             "ln_matmul: kernel takes bf16 x and w, got {}, {}", x2d.dtype,
+             w.dtype)
     _require(w.shape == (n, k) and ln_scale.shape == (k,)
              and ln_bias.shape == (k,) and bias.shape == (n,),
              "ln_matmul: shape mismatch")
     _require(k % 256 == 0 and k <= 1024 and n % 128 == 0,
-             f"ln_matmul: kernel needs K % 256 == 0, K <= 1024 and "
-             f"N % 128 == 0, got K={k}, N={n}")
+             "ln_matmul: kernel needs K % 256 == 0, K <= 1024 and "
+             "N % 128 == 0, got K={}, N={}", k, n)
     g, c, bb = _vec_f32(ln_scale), _vec_f32(ln_bias), _vec_f32(bias)
     _check_cuda("ln_matmul", x2d, w, g, c, bb)
     xn = torch.empty_like(x2d)
@@ -200,11 +203,11 @@ def _launch_mha(name: str, q: torch.Tensor, k: torch.Tensor,
     element strides; the head dim (64) is contiguous."""
     for i, x in enumerate((q, k, v, out)):
         _require(x.device == q.device and x.dtype == torch.bfloat16,
-                 f"{name}: kernel takes bf16 on one device")
+                 "{}: kernel takes bf16 on one device", name)
         _require(x.stride(-1) == 1 and x.data_ptr() % 16 == 0
                  and all(st % 8 == 0 for st in strides[3 * i:3 * i + 3]),
-                 f"{name}: kernel needs 16-byte aligned rows of 64 "
-                 "contiguous elements")
+                 "{}: kernel needs 16-byte aligned rows of 64 contiguous "
+                 "elements", name)
     arr = (ctypes.c_longlong * 12)(*strides)
     rc = _lib().avl_mha(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), arr, b, t, n_heads, t_real,
@@ -231,15 +234,15 @@ def mha_oneshot_2d(qkv2d: torch.Tensor, b: int, t: int, n_heads: int, *,
         t_real = t
     m, three_w = qkv2d.shape
     _require(m == b * t and three_w % 3 == 0, "mha_oneshot_2d: shape")
-    _require(0 < t_real <= t, f"mha_oneshot_2d: t_real={t_real}, t={t}")
+    _require(0 < t_real <= t, "mha_oneshot_2d: t_real={}, t={}", t_real, t)
     if qkv2d.device.type == "cpu":
         return mha_oneshot_2d_ref(qkv2d, b, t, n_heads, scale=scale,
                                   t_real=t_real)
-    _require(qkv2d.is_cuda, f"mha_oneshot_2d: unsupported device "
-             f"{qkv2d.device}")
+    _require(qkv2d.is_cuda, "mha_oneshot_2d: unsupported device {}",
+             qkv2d.device)
     w = three_w // 3
-    _require(w == n_heads * 64, f"mha_oneshot_2d: kernel needs head dim 64, "
-             f"got width {w} over {n_heads} heads")
+    _require(w == n_heads * 64, "mha_oneshot_2d: kernel needs head dim 64, "
+             "got width {} over {} heads", w, n_heads)
     _check_cuda("mha_oneshot_2d", qkv2d)
     out = torch.empty((m, w), dtype=qkv2d.dtype, device=qkv2d.device)
     # q, k and v are column blocks of the qkv matrix: token stride 3W, head
@@ -267,11 +270,11 @@ def mha_bhtd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         t_real = t
     _require(k.shape == q.shape and v.shape == q.shape,
              "mha_bhtd: q, k, v shapes differ")
-    _require(0 < t_real <= t, f"mha_bhtd: t_real={t_real}, t={t}")
+    _require(0 < t_real <= t, "mha_bhtd: t_real={}, t={}", t_real, t)
     if q.device.type == "cpu":
         return mha_bhtd_ref(q, k, v, scale=scale, t_real=t_real)
-    _require(q.is_cuda, f"mha_bhtd: unsupported device {q.device}")
-    _require(d == 64, f"mha_bhtd: kernel needs head dim 64, got {d}")
+    _require(q.is_cuda, "mha_bhtd: unsupported device {}", q.device)
+    _require(d == 64, "mha_bhtd: kernel needs head dim 64, got {}", d)
     out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
     strides = (_strides(q, 0, 1, 2) + _strides(k, 0, 1, 2)
                + _strides(v, 0, 1, 2) + _strides(out, 0, 1, 2))
@@ -317,8 +320,8 @@ def ln_mlp_residual(x2d: torch.Tensor, ln_scale: torch.Tensor,
     if x2d.device.type == "cpu":
         return ln_mlp_residual_ref(x2d, ln_scale, ln_bias, w1, b1, w2, b2,
                                    eps=eps)
-    _require(x2d.is_cuda, f"ln_mlp_residual: unsupported device "
-             f"{x2d.device}")
+    _require(x2d.is_cuda, "ln_mlp_residual: unsupported device {}",
+             x2d.device)
     m, k = x2d.shape
     n1 = w1.shape[0]
     _require(all(t.dtype == torch.bfloat16 for t in (x2d, w1, w2)),
@@ -328,8 +331,8 @@ def ln_mlp_residual(x2d: torch.Tensor, ln_scale: torch.Tensor,
              and ln_scale.shape == (k,) and ln_bias.shape == (k,),
              "ln_mlp_residual: shape mismatch")
     _require(k % 256 == 0 and k <= 1024 and n1 % 128 == 0,
-             f"ln_mlp_residual: kernel needs K % 256 == 0, K <= 1024 and "
-             f"N1 % 128 == 0, got K={k}, N1={n1}")
+             "ln_mlp_residual: kernel needs K % 256 == 0, K <= 1024 and "
+             "N1 % 128 == 0, got K={}, N1={}", k, n1)
     g, c = _vec_f32(ln_scale), _vec_f32(ln_bias)
     bb1, bb2 = _vec_f32(b1), _vec_f32(b2)
     _check_cuda("ln_mlp_residual", x2d, w1, w2, g, c, bb1, bb2)
@@ -375,17 +378,17 @@ def gelu_matmul(x2d: torch.Tensor, w: torch.Tensor,
     bf16 operand to a scratch buffer that the wgmma GEMM reads."""
     if x2d.device.type == "cpu":
         return gelu_matmul_ref(x2d, w, bias)
-    _require(x2d.is_cuda, f"gelu_matmul: unsupported device {x2d.device}")
+    _require(x2d.is_cuda, "gelu_matmul: unsupported device {}", x2d.device)
     m, k = x2d.shape
     n = w.shape[0]
     _require(x2d.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
-             f"gelu_matmul: kernel takes bf16 x and w, got {x2d.dtype}, "
-             f"{w.dtype}")
+             "gelu_matmul: kernel takes bf16 x and w, got {}, {}",
+             x2d.dtype, w.dtype)
     _require(w.shape == (n, k) and bias.shape == (n,),
              "gelu_matmul: shape mismatch")
     _require(k % 64 == 0 and n % 128 == 0,
-             f"gelu_matmul: kernel needs K % 64 == 0 and N % 128 == 0, got "
-             f"K={k}, N={n}")
+             "gelu_matmul: kernel needs K % 64 == 0 and N % 128 == 0, got "
+             "K={}, N={}", k, n)
     bb = _vec_f32(bias)
     _check_cuda("gelu_matmul", x2d, w, bb)
     gx = torch.empty_like(x2d)

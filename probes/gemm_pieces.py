@@ -4,25 +4,24 @@ piece, against cuBLAS.
     python3 probes/gemm_pieces.py               # one card; writes nothing
     python3 probes/gemm_pieces.py --host TREE   # host cost of the wrappers
 
-Builds ``probes/gemm_pieces.cu`` (the GEMM of ``csrc/fused_vit.cu`` under
-every schedule and epilogue as one entry point, and the LN and GELU
+Builds ``probes/gemm_pieces.cu`` (the GEMM of ``csrc/fused_vit.cu`` with
+every tile width and epilogue as one entry point, and the LN and GELU
 passes) and prints, at ViT-L width and the two row counts of the map
 builds (8 crops of 480^2: M = 7208; the batch-16 whole canvas: M =
 11,984), the device time of each piece beside cuBLAS's ``F.linear`` for
 the same product, the port's wrapper for the whole kernel and the
 library calls the smoke times beside it:
 
-- K1 (LN -> qkv, N = 3072, K = 1024): the LN pass, then the GEMM under
-  each schedule (cooperative 128 x 256, cooperative 128 x 128, ping-pong
-  128 x 128);
-- K6 (GELU -> proj, N = 1024, K = 4096): the GELU pass, then the GEMM;
+- K1 (LN -> qkv, N = 3072, K = 1024): the LN pass, then the GEMM on each
+  tile (128 x 256, 128 x 192, 128 x 128);
+- K6 (GELU -> proj, N = 1024, K = 4096): the GELU pass, then the GEMM on
+  128 x 256 and 128 x 128 tiles;
 - K3: the fc (N = 4096, bias + GELU) and the proj (N = 1024, bias +
-  residual) under each schedule.
+  residual) on the same two tiles.
 
 Device times are read from ``torch.profiler`` (the kernels' own time, no
-launch gap).  It also checks that every schedule gives the bits of the
-cooperative 128 x 256 one, and that each wrapper gives the bits of its
-pass and GEMM.
+launch gap).  It also checks that every tile gives the bits of the 128 x
+256 one, and that each wrapper gives the bits of its pass and GEMM.
 
 ``--host TREE`` imports ``avlmaps_torch`` from the checkout TREE (``.``
 or a ``git archive`` of another commit) and prints the host microseconds
@@ -42,7 +41,8 @@ REPO = Path(__file__).resolve().parents[1]
 WIDTH, MLP, EPS = 1024, 4096, 1e-6
 ROWS = (7208, 11984)
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
-SCHEDS = {0: "coop 128x256", 1: "coop 128x128", 2: "ping 128x128"}
+TILES = {0: "128x256", 1: "128x128"}
+TILE_192 = "128x192"  # tile 2, K1 only: 192 divides N = 3072
 BIAS, GELU, RESID = 0, 1, 2  # epilogues
 
 
@@ -66,6 +66,8 @@ def build(out_dir: Path) -> ctypes.CDLL:
     lib.probe_gelu_rows.argtypes = [p, p, ctypes.c_longlong, p]
     for fn in (lib.probe_gemm, lib.probe_ln_rows, lib.probe_gelu_rows):
         fn.restype = i
+    lib.probe_encode_us.argtypes = [p, i, i, i, i]
+    lib.probe_encode_us.restype = ctypes.c_double
     return lib
 
 
@@ -151,6 +153,30 @@ def host_main(tree: Path) -> int:
     return 0
 
 
+def host_parts(lib, fv, w, x) -> None:
+    """This tree's K1 host cost taken apart: the bare ctypes call of its
+    C entry point (two launches, two tensor maps) against the whole
+    wrapper, and one tensor map, encoded or from the cache."""
+    import torch
+
+    m = x.shape[0]
+    xn, out = torch.empty_like(x), torch.empty(m, 3 * WIDTH,
+                                               dtype=x.dtype, device="cuda")
+    args = (x.data_ptr(), w["gam"].data_ptr(), w["bet"].data_ptr(),
+            w["wq"].data_ptr(), w["bq"].data_ptr(), xn.data_ptr(),
+            out.data_ptr(), m, 3 * WIDTH, WIDTH, EPS,
+            torch.cuda.current_stream().cuda_stream)
+    c_call = fv._lib().avl_ln_matmul
+    c_us = host_us(lambda: c_call(*args))
+    wrapper_us = host_us(lambda: fv.ln_matmul(x, w["gam"], w["bet"],
+                                              w["wq"], w["bq"], eps=EPS))
+    encode_us = lib.probe_encode_us(x.data_ptr(), m, WIDTH, 1000, 1)
+    cached_us = lib.probe_encode_us(x.data_ptr(), m, WIDTH, 1000, 0)
+    print(f"  host K1 C entry alone: {c_us:.1f} us per call; wrapper "
+          f"{wrapper_us:.1f} us; a tensor map: encoded {encode_us:.2f} us, "
+          f"from the cache {cached_us:.2f} us")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -170,6 +196,7 @@ def main() -> int:
         g.manual_seed(3)
         w = weights(g)
         print(torch.cuda.get_device_name(0))
+        host_parts(lib, fv, w, rand(g, ROWS[0], WIDTH))
         for m in ROWS:
             x = rand(g, m, WIDTH)
             hin = rand(g, m, MLP)  # K6's input: an fc output
@@ -177,11 +204,11 @@ def main() -> int:
             outs = {n: torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
                     for n in (WIDTH, 3 * WIDTH, MLP)}
 
-            def gemm(epi, sched, a, wt, bias, resid=None):
+            def gemm(epi, tile, a, wt, bias, resid=None):
                 n, k = wt.shape
                 out = outs[n]
                 rc = lib.probe_gemm(
-                    epi, sched, a.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                    epi, tile, a.data_ptr(), wt.data_ptr(), bias.data_ptr(),
                     None if resid is None else resid.data_ptr(),
                     out.data_ptr(), m, n, k, stream())
                 if rc:
@@ -207,7 +234,7 @@ def main() -> int:
                 eps=EPS)
             ln_rows()
             gelu_rows()
-            # the same bits under every schedule, and from each wrapper
+            # the same bits on every tile, and from each wrapper
             cases = {"K1": (BIAS, xn, w["wq"], w["bq"], None),
                      "K6": (BIAS, gx, w["w2"], w["b2"], None),
                      "K3 fc": (GELU, xn, w["w1"], w["b1"], None),
@@ -215,22 +242,23 @@ def main() -> int:
             same, refs = {}, {}
             for label, (epi, a, wt, bias, resid) in cases.items():
                 refs[label] = gemm(epi, 0, a, wt, bias, resid).clone()
-                for sched in (1, 2):
-                    same[f"{label} {SCHEDS[sched]}"] = torch.equal(
-                        gemm(epi, sched, a, wt, bias, resid), refs[label])
+                same[f"{label} {TILES[1]}"] = torch.equal(
+                    gemm(epi, 1, a, wt, bias, resid), refs[label])
+            same[f"K1 {TILE_192}"] = torch.equal(
+                gemm(BIAS, 2, xn, w["wq"], w["bq"]), refs["K1"])
             same["K1 wrapper"] = torch.equal(k1(), refs["K1"])
             same["K6 wrapper"] = torch.equal(k6(), refs["K6"])
             torch.cuda.synchronize()
-            print(f"M={m}: bitwise equal to {SCHEDS[0]}: " + ", ".join(
+            print(f"M={m}: bitwise equal to {TILES[0]}: " + ", ".join(
                 f"{k} {v}" for k, v in same.items()))
             if not all(same.values()):
-                print("  FAIL: a schedule or wrapper changed the bits")
+                print("  FAIL: a tile or wrapper changed the bits")
 
             bq, b1, b2 = (w[k].to(torch.bfloat16) for k in ("bq", "b1", "b2"))
             pieces = [("K1 LN pass writing the rows", 0, ln_rows)]
-            pieces += [(f"K1 GEMM, {sname}", 3 * WIDTH * WIDTH,
-                        lambda s=sched: gemm(BIAS, s, xn, w["wq"], w["bq"]))
-                       for sched, sname in SCHEDS.items()]
+            pieces += [(f"K1 GEMM, {tname}", 3 * WIDTH * WIDTH,
+                        lambda s=tile: gemm(BIAS, s, xn, w["wq"], w["bq"]))
+                       for tile, tname in {**TILES, 2: TILE_192}.items()]
             pieces += [
                 ("K1 cuBLAS F.linear on the rows", 3 * WIDTH * WIDTH,
                  lambda: F.linear(xn, w["wq"], bq)),
@@ -241,9 +269,9 @@ def main() -> int:
                      w["bet"].to(x.dtype), EPS), w["wq"], bq)),
                 ("K6 GELU pass", 0, gelu_rows),
             ]
-            pieces += [(f"K6 GEMM, {sname}", MLP * WIDTH,
-                        lambda s=sched: gemm(BIAS, s, gx, w["w2"], w["b2"]))
-                       for sched, sname in SCHEDS.items()]
+            pieces += [(f"K6 GEMM, {tname}", MLP * WIDTH,
+                        lambda s=tile: gemm(BIAS, s, gx, w["w2"], w["b2"]))
+                       for tile, tname in TILES.items()]
             pieces += [
                 ("K6 cuBLAS F.linear on the GELU rows", MLP * WIDTH,
                  lambda: F.linear(gx, w["w2"], b2)),
@@ -251,12 +279,12 @@ def main() -> int:
                 ("K6 library: gelu + linear", MLP * WIDTH,
                  lambda: F.linear(F.gelu(hin), w["w2"], b2)),
             ]
-            for sched, sname in SCHEDS.items():
+            for tile, tname in TILES.items():
                 pieces += [
-                    (f"K3 fc + GELU, {sname}", MLP * WIDTH,
-                     lambda s=sched: gemm(GELU, s, xn, w["w1"], w["b1"])),
-                    (f"K3 proj + b2 + residual, {sname}", MLP * WIDTH,
-                     lambda s=sched: gemm(RESID, s, hin, w["w2"], w["b2"],
+                    (f"K3 fc + GELU, {tname}", MLP * WIDTH,
+                     lambda s=tile: gemm(GELU, s, xn, w["w1"], w["b1"])),
+                    (f"K3 proj + b2 + residual, {tname}", MLP * WIDTH,
+                     lambda s=tile: gemm(RESID, s, hin, w["w2"], w["b2"],
                                           x)),
                 ]
             pieces += [
@@ -279,5 +307,5 @@ def main() -> int:
     return 0
 
 
-if __name__ == "__main__":
+if __tname_ == "__main__":
     sys.exit(main())

@@ -49,12 +49,14 @@ def _ln_inputs(gen, m, k):
             _randn(gen, k, std=0.1, dtype=torch.float32))
 
 
-# (M, K, N): width 256 with 128 x 128 tiles (N = 384) and 128 x 256 tiles
-# (N = 768); ViT-L's qkv (N = 3072) and unfused fc (N = 4096) at the map
-# builds' row counts, whose last 128-row tile is partial (7208 % 128 = 40,
-# 11,984 % 128 = 80)
+# (M, K, N): width 256 with 128 x 192 tiles (N = 384, 768), 128 x 128
+# tiles (N = 640) and 128 x 256 tiles (N = 1024); ViT-L's qkv (N = 3072:
+# 128 x 192 at M = 7208, 128 x 256 at 11,984) and unfused fc (N = 4096)
+# at the map builds' row counts, whose last 128-row tile is partial (7208
+# % 128 = 40, 11,984 % 128 = 80)
 @pytest.mark.parametrize("m,k,n", [(200, 256, 384), (64, 256, 384),
-                                   (130, 256, 768), (7208, 1024, 3072),
+                                   (130, 256, 768), (200, 256, 640),
+                                   (130, 256, 1024), (7208, 1024, 3072),
                                    (11984, 1024, 3072), (7208, 1024, 4096),
                                    (11984, 1024, 4096), (7208, 1024, 384)])
 def test_ln_matmul_kernel(gen, m, k, n):
@@ -111,7 +113,8 @@ def test_mha_kernel_stops_at_t(gen, t):
 @pytest.mark.parametrize("k,n1", [(256, 1024), (1024, 4096), (256, 384)])
 def test_ln_mlp_residual_kernel(gen, m, k, n1):
     """K3 at widths 256 and 1024 with N1 = 4 x width (128 x 256 tiles) and
-    N1 = 384 (128 x 128 tiles); M = 1000 leaves a partial row tile."""
+    N1 = 384 (the fc on 128 x 192 tiles, the proj on 128 x 256); M = 1000
+    leaves a partial row tile."""
     x, g, c = _ln_inputs(gen, m, k)
     w1 = _randn(gen, n1, k, std=k ** -0.5)
     w2 = _randn(gen, k, n1, std=n1 ** -0.5)
@@ -281,12 +284,13 @@ def test_fuse_points_on_the_card_matches_the_cpu(gen):
                                atol=1e-4, rtol=1e-5)
 
 
-# (M, K, N): width 256's proj (K = 1024, N = 256), a 128 x 128 tile
-# (N = 384), and ViT-L's proj (K = 4096, N = 1024) at the map builds' row
-# counts
+# (M, K, N): width 256's proj (K = 1024, N = 256), 128 x 192 (N = 384)
+# and 128 x 128 tiles (N = 640), and ViT-L's proj (K = 4096, N = 1024) at
+# the map builds' row counts
 @pytest.mark.parametrize("m,k,n", [(200, 1024, 256), (64, 1024, 256),
-                                   (130, 1024, 384), (7208, 4096, 1024),
-                                   (11984, 4096, 1024), (7208, 4096, 384)])
+                                   (130, 1024, 384), (130, 1024, 640),
+                                   (7208, 4096, 1024), (11984, 4096, 1024),
+                                   (7208, 4096, 384)])
 def test_gelu_matmul_kernel(gen, m, k, n):
     x = _randn(gen, m, k)
     w = _randn(gen, n, k, std=k ** -0.5)
