@@ -248,6 +248,26 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// Shared -> global 2-D tile store, committed as its own bulk group;
+// elements outside the tensor are dropped.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk store groups still read
+// shared memory (N = 0 at exit: all of them).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
 // Orders this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (wgmma operands, TMA stores).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -492,11 +512,14 @@ constexpr int WG_BK = 64;        // one 128-byte swizzled row of bf16
 constexpr int WG_STAGES = 4;     // TMA ring depth
 constexpr int WG_THREADS = 384;  // producer warpgroup + two consumers
 
-template <int TBN>
+constexpr int WG_STG = 2 * 2 * 64 * 64;  // TMA-store staging: 2 x 2 tiles
+
+template <int TBN, bool TST>
 constexpr size_t wg_gemm_smem() {
   return 1024  // slack to align the dynamic base to the 1024-byte atom
          + static_cast<size_t>(WG_STAGES) * (WG_BM + TBN) * WG_BK
                * sizeof(bf16)
+         + (TST ? WG_STG * sizeof(bf16) : 0)
          + 2 * WG_STAGES * sizeof(uint64_t);
 }
 
@@ -519,10 +542,16 @@ __device__ __forceinline__ void wgmma_tile(float (&acc)[TBN / 2],
 // 128 x TBN tiles, so neighbouring blocks share a weight panel); one
 // producer thread keeps the TMA ring full across them, and both consumer
 // warpgroups take every stage, 64 rows each of the tile.
-template <int EPI, int TBN>
+//
+// TST: the epilogue stages each warpgroup's 64 x 64 bf16 pieces in shared
+// memory (two buffers a warpgroup, 128-byte swizzle) and writes them with
+// TMA stores through tmC, a map of out (M, N) with a 64 x 64 box; else
+// each thread stores bf16 pairs straight from the accumulator layout.
+template <int EPI, int TBN, bool TST>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                   const __grid_constant__ CUtensorMap tmB,
+                  const __grid_constant__ CUtensorMap tmC,
                   const float* __restrict__ bias,
                   const bf16* __restrict__ resid, bf16* __restrict__ out,
                   int M, int N, int K) {
@@ -533,7 +562,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + WG_STAGES * A_ELEMS;
-  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + WG_STAGES * B_ELEMS);
+  bf16* Cs = Bs + WG_STAGES * B_ELEMS;  // TST staging (1024-aligned)
+  uint64_t* full = reinterpret_cast<uint64_t*>(Cs + (TST ? WG_STG : 0));
   uint64_t* empty = full + WG_STAGES;
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
@@ -578,7 +608,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
     const int cw = wg - 1;  // this consumer's 64-row half of the tile
     const int warp = tid / 32, lane = tid % 32;
     float acc[TBN / 2];
-    int stage = 0;
+    int stage = 0, sc = 0;  // sc: staging pieces written (TST)
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < n_tiles_total; tile += gridDim.x) {
       const int m0 = (tile % m_tiles) * WG_BM;
@@ -614,6 +644,50 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
       // col + {0,1}) and d[4j + {2,3}] is (row + 8, col + {0,1})
       const int row0 = m0 + cw * 64 + warp * 16 + lane / 4;
       const int colb = n0 + 2 * (lane % 4);
+      if constexpr (TST) {
+        // piece c: this warpgroup's 64 rows x columns 64c .. 64c + 63,
+        // i.e. accumulator column blocks j = 8c .. 8c + 7
+#pragma unroll
+        for (int c = 0; c < TBN / 64; ++c, ++sc) {
+          unsigned char* buf =
+              reinterpret_cast<unsigned char*>(Cs + (2 * cw + (sc & 1)) * 4096);
+          // the store that last read this buffer (two pieces ago) is done
+          if (tid == 0) bulk_wait_read<1>();
+          named_bar_sync(1 + cw, 128);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * c + jj, col = colb + 8 * j;
+            const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int rr = warp * 16 + lane / 4 + 8 * hh;
+              float v0 = acc[4 * j + 2 * hh] + bb.x;
+              float v1 = acc[4 * j + 2 * hh + 1] + bb.y;
+              if constexpr (EPI == EPI_GELU) {
+                v0 = gelu_erf(v0);
+                v1 = gelu_erf(v1);
+              } else if constexpr (EPI == EPI_RESID) {
+                if (row0 + 8 * hh < M) {
+                  const float2 r = __bfloat1622float2(
+                      *reinterpret_cast<const __nv_bfloat162*>(
+                          resid + static_cast<size_t>(row0 + 8 * hh) * N
+                          + col));
+                  v0 += r.x;
+                  v1 += r.y;
+                }
+              }
+              *reinterpret_cast<__nv_bfloat162*>(
+                  buf + rr * 128 + ((jj ^ (rr % 8)) << 4) + 4 * (lane % 4)) =
+                  __floats2bfloat162_rn(v0, v1);
+            }
+          }
+          fence_proxy_async();
+          named_bar_sync(1 + cw, 128);
+          if (tid == 0 && m0 + cw * 64 < M)
+            tma_store_2d(&tmC, buf, n0 + 64 * c, m0 + cw * 64);
+        }
+        continue;
+      }
 #pragma unroll
       for (int j = 0; j < TBN / 8; ++j) {
         const int col = colb + 8 * j;
@@ -638,6 +712,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
               __floats2bfloat162_rn(v0, v1);
         }
       }
+    }
+    if constexpr (TST) {
+      if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the reads
     }
   }
 }
@@ -962,25 +1039,26 @@ int sm_count() {
 // tile, if fewer).  The shared-memory attribute is set once per
 // instantiation (a thread-safe static; the port drives one card); the two
 // tensor maps come from the map cache.
-template <int EPI, int TBN>
+template <int EPI, int TBN, bool TST = false>
 cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const float* bias,
                             const bf16* resid, bf16* out, int M, int N,
                             int K, cudaStream_t stream) {
-  auto kern = wgmma_gemm_kernel<EPI, TBN>;
-  constexpr size_t smem = wg_gemm_smem<TBN>();
+  auto kern = wgmma_gemm_kernel<EPI, TBN, TST>;
+  constexpr size_t smem = wg_gemm_smem<TBN, TST>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   if (M == 0) return cudaSuccess;
-  CUtensorMap ta, tb;
+  CUtensorMap ta, tb, tc{};
   cudaError_t e = matrix_map(&ta, A, M, K, WG_BM);
   if (e == cudaSuccess) e = matrix_map(&tb, W, N, K, TBN);
+  if (TST && e == cudaSuccess) e = matrix_map(&tc, out, M, N, 64);
   if (e != cudaSuccess) return e;
   const int tiles = (M + WG_BM - 1) / WG_BM * (N / TBN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  kern<<<grid, WG_THREADS, smem, stream>>>(ta, tb, bias, resid, out, M, N,
-                                           K);
+  kern<<<grid, WG_THREADS, smem, stream>>>(ta, tb, tc, bias, resid, out, M,
+                                           N, K);
   return cudaGetLastError();
 }
 
