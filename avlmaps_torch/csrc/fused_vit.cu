@@ -34,12 +34,13 @@
 //     neighbouring row tiles of one weight panel); one producer thread
 //     keeps a 4-stage ring of 64-deep TMA tiles in flight; two consumer
 //     warpgroups run wgmma with the accumulators in registers (setmaxnreg
-//     moves registers from the producer to them), cooperatively on a
-//     128 x 256 tile or, where that shortens the last wave, ping-pong on
-//     128 x 128 tiles (launch_wgmma_gemm).  Epilogues add the bias, then
-//     apply GELU or add the residual x, in f32 from the registers, and
-//     store bf16 pairs.  K3 is the LN pass, the fc with bias + GELU
-//     writing the (M, 4096) bf16 intermediate -- the bf16 values the TPU
+//     moves registers from the producer to them), both on each 128 x 256
+//     or 128 x 192 tile (launch_wgmma_gemm).  Epilogues add the bias in
+//     f32 from the registers and round once to bf16; K1's qkv epilogue
+//     stages the 128 x 192 tile in shared memory for TMA stores, the
+//     others store bf16 pairs (K3's also apply GELU or add the
+//     residual).  K3 is the LN pass, the fc with bias + GELU writing the
+//     (M, 4096) bf16 intermediate -- the bf16 values the TPU
 //     kernel feeds its second MXU product -- and the proj with bias + x.
 //     One fused K3 would need the (rows, 1024) f32 accumulator of the
 //     second product resident beside the fc chunks -- 256 KB for 64 rows,
@@ -512,14 +513,20 @@ constexpr int WG_BK = 64;        // one 128-byte swizzled row of bf16
 constexpr int WG_STAGES = 4;     // TMA ring depth
 constexpr int WG_THREADS = 384;  // producer warpgroup + two consumers
 
-constexpr int WG_STG = 2 * 2 * 64 * 64;  // TMA-store staging: 2 x 2 tiles
+constexpr int WG_STG = 2 * 2 * 64 * 64;  // staging: 2 pieces a warpgroup
 
-template <int TBN, bool TST>
+// Whether the epilogue stages the tile for TMA stores (wgmma_gemm_kernel).
+template <int EPI, int TBN>
+constexpr bool wg_staged() {
+  return EPI == EPI_BIAS && TBN != 256;
+}
+
+template <int EPI, int TBN>
 constexpr size_t wg_gemm_smem() {
   return 1024  // slack to align the dynamic base to the 1024-byte atom
          + static_cast<size_t>(WG_STAGES) * (WG_BM + TBN) * WG_BK
                * sizeof(bf16)
-         + (TST ? WG_STG * sizeof(bf16) : 0)
+         + (wg_staged<EPI, TBN>() ? WG_STG * sizeof(bf16) : 0)
          + 2 * WG_STAGES * sizeof(uint64_t);
 }
 
@@ -543,11 +550,16 @@ __device__ __forceinline__ void wgmma_tile(float (&acc)[TBN / 2],
 // producer thread keeps the TMA ring full across them, and both consumer
 // warpgroups take every stage, 64 rows each of the tile.
 //
-// TST: the epilogue stages each warpgroup's 64 x 64 bf16 pieces in shared
-// memory (two buffers a warpgroup, 128-byte swizzle) and writes them with
-// TMA stores through tmC, a map of out (M, N) with a 64 x 64 box; else
-// each thread stores bf16 pairs straight from the accumulator layout.
-template <int EPI, int TBN, bool TST>
+// EPI_BIAS on 128 x 192 and 128 x 128 tiles (wg_staged) stages each
+// warpgroup's 64 x 64 bf16 pieces of the tile in shared memory (two
+// buffers a warpgroup, 128-byte swizzle) and writes them with TMA stores
+// through tmC, a map of out (M, N) with a 64 x 64 box, so the consumers go
+// on to the next tile while the stores drain.  Every other instantiation
+// stores bf16 pairs straight from the accumulator layout: staged, the GELU
+// and residual epilogues spilled registers and ran slower, and so did the
+// bias epilogue on 128 x 256 tiles, whose 128 accumulators leave too few
+// registers (probes/gemm_pieces.py; PERF.md).
+template <int EPI, int TBN>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                   const __grid_constant__ CUtensorMap tmB,
@@ -562,8 +574,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + WG_STAGES * A_ELEMS;
-  bf16* Cs = Bs + WG_STAGES * B_ELEMS;  // TST staging (1024-aligned)
-  uint64_t* full = reinterpret_cast<uint64_t*>(Cs + (TST ? WG_STG : 0));
+  constexpr bool STAGED = wg_staged<EPI, TBN>();
+  bf16* Cs = Bs + WG_STAGES * B_ELEMS;  // staging (1024-aligned)
+  uint64_t* full = reinterpret_cast<uint64_t*>(Cs + (STAGED ? WG_STG : 0));
   uint64_t* empty = full + WG_STAGES;
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
@@ -608,7 +621,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
     const int cw = wg - 1;  // this consumer's 64-row half of the tile
     const int warp = tid / 32, lane = tid % 32;
     float acc[TBN / 2];
-    int stage = 0, sc = 0;  // sc: staging pieces written (TST)
+    int stage = 0, sc = 0;  // sc: pieces staged so far
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < n_tiles_total; tile += gridDim.x) {
       const int m0 = (tile % m_tiles) * WG_BM;
@@ -644,76 +657,71 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
       // col + {0,1}) and d[4j + {2,3}] is (row + 8, col + {0,1})
       const int row0 = m0 + cw * 64 + warp * 16 + lane / 4;
       const int colb = n0 + 2 * (lane % 4);
-      if constexpr (TST) {
+      if constexpr (STAGED) {
         // piece c: this warpgroup's 64 rows x columns 64c .. 64c + 63,
-        // i.e. accumulator column blocks j = 8c .. 8c + 7
+        // i.e. accumulator column blocks j = 8c .. 8c + 7, in the swizzled
+        // layout of the store's box: row rr's 16-byte chunk jj sits at
+        // chunk jj ^ (rr % 8), and rr % 8 == lane / 4 for both of a
+        // thread's rows (rr and rr + 8)
 #pragma unroll
         for (int c = 0; c < TBN / 64; ++c, ++sc) {
-          unsigned char* buf =
-              reinterpret_cast<unsigned char*>(Cs + (2 * cw + (sc & 1)) * 4096);
+          // opaque per piece, so the compiler recomputes the eight chunk
+          // offsets here instead of keeping them live through the
+          // mainloop beside the accumulators (128 x 256 spilled)
+          uint32_t xo = lane / 4;
+          asm volatile("" : "+r"(xo));
+          unsigned char* buf = reinterpret_cast<unsigned char*>(
+              Cs + (2 * cw + (sc & 1)) * 64 * 64);
+          unsigned char* rowp =
+              buf + (warp * 16 + lane / 4) * 128 + 4 * (lane % 4);
           // the store that last read this buffer (two pieces ago) is done
           if (tid == 0) bulk_wait_read<1>();
           named_bar_sync(1 + cw, 128);
 #pragma unroll
           for (int jj = 0; jj < 8; ++jj) {
-            const int j = 8 * c + jj, col = colb + 8 * j;
-            const float2 bb = *reinterpret_cast<const float2*>(bias + col);
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int rr = warp * 16 + lane / 4 + 8 * hh;
-              float v0 = acc[4 * j + 2 * hh] + bb.x;
-              float v1 = acc[4 * j + 2 * hh + 1] + bb.y;
-              if constexpr (EPI == EPI_GELU) {
-                v0 = gelu_erf(v0);
-                v1 = gelu_erf(v1);
-              } else if constexpr (EPI == EPI_RESID) {
-                if (row0 + 8 * hh < M) {
-                  const float2 r = __bfloat1622float2(
-                      *reinterpret_cast<const __nv_bfloat162*>(
-                          resid + static_cast<size_t>(row0 + 8 * hh) * N
-                          + col));
-                  v0 += r.x;
-                  v1 += r.y;
-                }
-              }
-              *reinterpret_cast<__nv_bfloat162*>(
-                  buf + rr * 128 + ((jj ^ (rr % 8)) << 4) + 4 * (lane % 4)) =
-                  __floats2bfloat162_rn(v0, v1);
-            }
+            const int j = 8 * c + jj;
+            const float2 bb =
+                *reinterpret_cast<const float2*>(bias + colb + 8 * j);
+            unsigned char* p = rowp + ((jj ^ xo) << 4);
+            *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(
+                acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
+            *reinterpret_cast<__nv_bfloat162*>(p + 8 * 128) =
+                __floats2bfloat162_rn(acc[4 * j + 2] + bb.x,
+                                      acc[4 * j + 3] + bb.y);
           }
           fence_proxy_async();
           named_bar_sync(1 + cw, 128);
           if (tid == 0 && m0 + cw * 64 < M)
             tma_store_2d(&tmC, buf, n0 + 64 * c, m0 + cw * 64);
         }
-        continue;
-      }
+      } else {
 #pragma unroll
-      for (int j = 0; j < TBN / 8; ++j) {
-        const int col = colb + 8 * j;
-        const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+        for (int j = 0; j < TBN / 8; ++j) {
+          const int col = colb + 8 * j;
+          const float2 bb = *reinterpret_cast<const float2*>(bias + col);
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = row0 + 8 * hh;
-          if (row >= M) continue;
-          float v0 = acc[4 * j + 2 * hh] + bb.x;
-          float v1 = acc[4 * j + 2 * hh + 1] + bb.y;
-          const size_t off = static_cast<size_t>(row) * N + col;
-          if constexpr (EPI == EPI_GELU) {
-            v0 = gelu_erf(v0);
-            v1 = gelu_erf(v1);
-          } else if constexpr (EPI == EPI_RESID) {
-            const float2 r = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(resid + off));
-            v0 += r.x;
-            v1 += r.y;
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = row0 + 8 * hh;
+            if (row >= M) continue;
+            float v0 = acc[4 * j + 2 * hh] + bb.x;
+            float v1 = acc[4 * j + 2 * hh + 1] + bb.y;
+            const size_t off = static_cast<size_t>(row) * N + col;
+            if constexpr (EPI == EPI_GELU) {
+              v0 = gelu_erf(v0);
+              v1 = gelu_erf(v1);
+            } else if constexpr (EPI == EPI_RESID) {
+              const float2 r = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(resid + off));
+              v0 += r.x;
+              v1 += r.y;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(out + off) =
+                __floats2bfloat162_rn(v0, v1);
           }
-          *reinterpret_cast<__nv_bfloat162*>(out + off) =
-              __floats2bfloat162_rn(v0, v1);
         }
       }
     }
-    if constexpr (TST) {
+    if constexpr (STAGED) {
       if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the reads
     }
   }
@@ -1039,12 +1047,12 @@ int sm_count() {
 // tile, if fewer).  The shared-memory attribute is set once per
 // instantiation (a thread-safe static; the port drives one card); the two
 // tensor maps come from the map cache.
-template <int EPI, int TBN, bool TST = false>
+template <int EPI, int TBN>
 cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const float* bias,
                             const bf16* resid, bf16* out, int M, int N,
                             int K, cudaStream_t stream) {
-  auto kern = wgmma_gemm_kernel<EPI, TBN, TST>;
-  constexpr size_t smem = wg_gemm_smem<TBN, TST>();
+  auto kern = wgmma_gemm_kernel<EPI, TBN>;
+  constexpr size_t smem = wg_gemm_smem<EPI, TBN>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1053,7 +1061,8 @@ cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const float* bias,
   CUtensorMap ta, tb, tc{};
   cudaError_t e = matrix_map(&ta, A, M, K, WG_BM);
   if (e == cudaSuccess) e = matrix_map(&tb, W, N, K, TBN);
-  if (TST && e == cudaSuccess) e = matrix_map(&tc, out, M, N, 64);
+  if (wg_staged<EPI, TBN>() && e == cudaSuccess)
+    e = matrix_map(&tc, out, M, N, 64);
   if (e != cudaSuccess) return e;
   const int tiles = (M + WG_BM - 1) / WG_BM * (N / TBN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
@@ -1062,30 +1071,27 @@ cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const float* bias,
   return cudaGetLastError();
 }
 
-// out[M, N] = epi(A[M, K] . W[N, K]^T) on 128 x 256 tiles where N % 256 ==
-// 0, else 128 x 192 where N % 192 == 0, else 128 x 128.  Per output a
-// wider tile reads less from L2, which is what bounds the mainloop (a
-// 128 x 128 tile reads a third more than a 128 x 256 one, a 128 x 192 one
-// a ninth more).  A persistent block's time is its share of tiles, so
-// 128 x 192 is taken over 128 x 256 where it cuts the busiest block's
-// share by more than 1/16: K1's qkv (N = 3072) at M = 7208 (7 tiles of
-// three quarters the work, against 6: 10% faster) but not at M = 11,984
-// (12 such tiles, against 9: 2% slower).  Ping-pong consumers on 128 x 128 tiles
-// (each warpgroup's epilogue under the other's products) measured 1-3%
-// slower than 128 x 192 at M = 7208 and 6-40% slower than 128 x 256
-// elsewhere (probes/gemm_pieces.py; PERF.md).
+// out[M, N] = epi(A[M, K] . W[N, K]^T).  Tile widths as measured on an
+// H100 (probes/gemm_pieces.py; PERF.md): the bias epilogue runs 128 x 192
+// tiles, staged, where 192 divides N -- K1's qkv (N = 3072) in 0.0688 /
+// 0.1188 ms at M = 7208 / 11,984, against 0.0850 / 0.1330 staged on
+// 128 x 256 and 0.1041 / 0.1602 direct on 128 x 256 -- else 128 x 256;
+// the other epilogues run 128 x 256 where 256 divides N
+// (K1's product with direct stores: 0.1602 ms on 128 x 256 against 0.1655
+// on 128 x 192 at M = 11,984), else 128 x 192, else 128 x 128 (K6's
+// product: 0.1399 ms on 128 x 128 against 0.0966 on 128 x 256).  A
+// ping-pong schedule (each consumer warpgroup on its own 128 x 128 tile,
+// its epilogue under the other's products, direct stores) measured 2-45%
+// slower than 128 x 256 at every shape but K1's at M = 7208, where it
+// took 0.0983 ms against 0.1052: slower than the staged 128 x 192 tile.
 template <int EPI>
 cudaError_t launch_wgmma_gemm(const bf16* A, const bf16* W, const float* bias,
                               const bf16* resid, bf16* out, int M, int N,
                               int K, cudaStream_t stream) {
-  const int m_tiles = (M + WG_BM - 1) / WG_BM, sms = sm_count();
-  auto share = [&](int tbn) { return (m_tiles * (N / tbn) + sms - 1) / sms; };
-  const bool narrower = N % 192 == 0
-      && (N % 256 != 0 || 16 * 3 * share(192) < 15 * 4 * share(256));
-  if (N % 256 == 0 && !narrower)
-    return launch_gemm_cfg<EPI, 256>(A, W, bias, resid, out, M, N, K, stream);
-  if (N % 192 == 0)
+  if (N % 192 == 0 && (EPI == EPI_BIAS || N % 256 != 0))
     return launch_gemm_cfg<EPI, 192>(A, W, bias, resid, out, M, N, K, stream);
+  if (N % 256 == 0)
+    return launch_gemm_cfg<EPI, 256>(A, W, bias, resid, out, M, N, K, stream);
   return launch_gemm_cfg<EPI, 128>(A, W, bias, resid, out, M, N, K, stream);
 }
 

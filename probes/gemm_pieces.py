@@ -31,6 +31,7 @@ a call of its K1, K6 and K3 wrappers takes to enqueue, at M = 7208.
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,11 +58,13 @@ def build(out_dir: Path) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed:\n{r.stderr[-4000:]}")
     for name, info in kb.ptxas_report(r.stdout + r.stderr).items():
         if "kernel" in name and "registers" in info:
-            print(f"  ptxas {name[:70]}: {info['registers']} registers, "
+            m = re.search(r"\d+([a-z_]+kernel)((?:I(?:L[^E]*E)+E)?)", name)
+            label = "".join(m.groups()) if m else name[:70]
+            print(f"  ptxas {label}: {info['registers']} registers, "
                   f"{info.get('spill_stores', 0)} bytes spill stores")
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.probe_gemm.argtypes = [i, i, i] + [p] * 5 + [i] * 3 + [p]
+    lib.probe_gemm.argtypes = [i, i] + [p] * 5 + [i] * 3 + [p]
     lib.probe_ln_rows.argtypes = [p] * 4 + [i, i, f, p]
     lib.probe_gelu_rows.argtypes = [p, p, ctypes.c_longlong, p]
     for fn in (lib.probe_gemm, lib.probe_ln_rows, lib.probe_gelu_rows):
@@ -204,12 +207,11 @@ def main() -> int:
             outs = {n: torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
                     for n in (WIDTH, 3 * WIDTH, MLP)}
 
-            def gemm(epi, tile, a, wt, bias, resid=None, tst=0):
+            def gemm(epi, tile, a, wt, bias, resid=None):
                 n, k = wt.shape
                 out = outs[n]
                 rc = lib.probe_gemm(
-                    epi, tile, tst, a.data_ptr(), wt.data_ptr(),
-                    bias.data_ptr(),
+                    epi, tile, a.data_ptr(), wt.data_ptr(), bias.data_ptr(),
                     None if resid is None else resid.data_ptr(),
                     out.data_ptr(), m, n, k, stream())
                 if rc:
@@ -245,12 +247,8 @@ def main() -> int:
                 refs[label] = gemm(epi, 0, a, wt, bias, resid).clone()
                 same[f"{label} {TILES[1]}"] = torch.equal(
                     gemm(epi, 1, a, wt, bias, resid), refs[label])
-                same[f"{label} {TILES[0]} TMA store"] = torch.equal(
-                    gemm(epi, 0, a, wt, bias, resid, 1), refs[label])
             same[f"K1 {TILE_192}"] = torch.equal(
                 gemm(BIAS, 2, xn, w["wq"], w["bq"]), refs["K1"])
-            same[f"K1 {TILE_192} TMA store"] = torch.equal(
-                gemm(BIAS, 2, xn, w["wq"], w["bq"], None, 1), refs["K1"])
             same["K1 wrapper"] = torch.equal(k1(), refs["K1"])
             same["K6 wrapper"] = torch.equal(k6(), refs["K6"])
             torch.cuda.synchronize()
@@ -264,10 +262,6 @@ def main() -> int:
             pieces += [(f"K1 GEMM, {tname}", 3 * WIDTH * WIDTH,
                         lambda s=tile: gemm(BIAS, s, xn, w["wq"], w["bq"]))
                        for tile, tname in {**TILES, 2: TILE_192}.items()]
-            pieces += [(f"K1 GEMM, {tname}, TMA store", 3 * WIDTH * WIDTH,
-                        lambda s=tile: gemm(BIAS, s, xn, w["wq"], w["bq"],
-                                            None, 1))
-                       for tile, tname in {0: TILES[0], 2: TILE_192}.items()]
             pieces += [
                 ("K1 cuBLAS F.linear on the rows", 3 * WIDTH * WIDTH,
                  lambda: F.linear(xn, w["wq"], bq)),
@@ -281,8 +275,6 @@ def main() -> int:
             pieces += [(f"K6 GEMM, {tname}", MLP * WIDTH,
                         lambda s=tile: gemm(BIAS, s, gx, w["w2"], w["b2"]))
                        for tile, tname in TILES.items()]
-            pieces += [(f"K6 GEMM, {TILES[0]}, TMA store", MLP * WIDTH,
-                        lambda: gemm(BIAS, 0, gx, w["w2"], w["b2"], None, 1))]
             pieces += [
                 ("K6 cuBLAS F.linear on the GELU rows", MLP * WIDTH,
                  lambda: F.linear(gx, w["w2"], b2)),
@@ -299,11 +291,6 @@ def main() -> int:
                                           x)),
                 ]
             pieces += [
-                (f"K3 fc + GELU, {TILES[0]}, TMA store", MLP * WIDTH,
-                 lambda: gemm(GELU, 0, xn, w["w1"], w["b1"], None, 1)),
-                (f"K3 proj + b2 + residual, {TILES[0]}, TMA store",
-                 MLP * WIDTH,
-                 lambda: gemm(RESID, 0, hin, w["w2"], w["b2"], x, 1)),
                 ("K3 fc cuBLAS F.linear", MLP * WIDTH,
                  lambda: F.linear(xn, w["w1"], b1)),
                 ("K3 proj cuBLAS F.linear", MLP * WIDTH,

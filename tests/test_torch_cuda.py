@@ -50,10 +50,11 @@ def _ln_inputs(gen, m, k):
 
 
 # (M, K, N): width 256 with 128 x 192 tiles (N = 384, 768), 128 x 128
-# tiles (N = 640) and 128 x 256 tiles (N = 1024); ViT-L's qkv (N = 3072:
-# 128 x 192 at M = 7208, 128 x 256 at 11,984) and unfused fc (N = 4096)
-# at the map builds' row counts, whose last 128-row tile is partial (7208
-# % 128 = 40, 11,984 % 128 = 80)
+# tiles (N = 640) and 128 x 256 tiles (N = 1024); ViT-L's qkv (N = 3072,
+# 128 x 192 tiles) and unfused fc (N = 4096, 128 x 256 tiles) at the map
+# builds' row counts, whose last 128-row tile is partial (7208 % 128 = 40,
+# 11,984 % 128 = 80: the staged epilogue's second 64-row store is clipped
+# or skipped)
 @pytest.mark.parametrize("m,k,n", [(200, 256, 384), (64, 256, 384),
                                    (130, 256, 768), (200, 256, 640),
                                    (130, 256, 1024), (7208, 1024, 3072),
