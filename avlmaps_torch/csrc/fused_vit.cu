@@ -556,9 +556,9 @@ __device__ __forceinline__ void wgmma_tile(float (&acc)[TBN / 2],
 // through tmC, a map of out (M, N) with a 64 x 64 box, so the consumers go
 // on to the next tile while the stores drain.  Every other instantiation
 // stores bf16 pairs straight from the accumulator layout: staged, the GELU
-// and residual epilogues spilled registers and ran slower, and so did the
-// bias epilogue on 128 x 256 tiles, whose 128 accumulators leave too few
-// registers (probes/gemm_pieces.py; PERF.md).
+// and residual epilogues ran slower, and the bias epilogue on 128 x 256
+// tiles, beside 128 accumulators a thread, spilled registers
+// (probes/gemm_pieces.py; PERF.md).
 template <int EPI, int TBN>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
@@ -665,11 +665,6 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
         // thread's rows (rr and rr + 8)
 #pragma unroll
         for (int c = 0; c < TBN / 64; ++c, ++sc) {
-          // opaque per piece, so the compiler recomputes the eight chunk
-          // offsets here instead of keeping them live through the
-          // mainloop beside the accumulators (128 x 256 spilled)
-          uint32_t xo = lane / 4;
-          asm volatile("" : "+r"(xo));
           unsigned char* buf = reinterpret_cast<unsigned char*>(
               Cs + (2 * cw + (sc & 1)) * 64 * 64);
           unsigned char* rowp =
@@ -682,7 +677,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
             const int j = 8 * c + jj;
             const float2 bb =
                 *reinterpret_cast<const float2*>(bias + colb + 8 * j);
-            unsigned char* p = rowp + ((jj ^ xo) << 4);
+            unsigned char* p = rowp + ((jj ^ (lane / 4)) << 4);
             *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(
                 acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
             *reinterpret_cast<__nv_bfloat162*>(p + 8 * 128) =

@@ -156,10 +156,11 @@ def time_ms(fn, iters: int = 10) -> float:
 def device_ms(fn, iters: int = 20) -> float:
     """Device time of every kernel ``fn`` launches, per call, from
     ``torch.profiler``: the kernels' own time, free of the host's launch
-    gaps that bound ``time_ms`` near 0.1 ms for a wrapper that encodes
-    tensor maps on each call.  Each kernel counts at its mean time per
-    launch times its launches per call: after the build profiles, a later
-    profile in the same process can miss some of a kernel's records."""
+    gaps that bound ``time_ms`` near 0.1 ms for a call that launches two
+    or more kernels (a wrapper's pass and GEMM, a library call's ops).
+    Each kernel counts at its mean time per launch times its launches per
+    call: after the build profiles, a later profile in the same process
+    can miss some of a kernel's records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -181,10 +182,11 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 
 
 def _times(r) -> str:
-    dev = (f" (device {r['device_ms']:.4f} ms, profiler)" if "device_ms" in r
-           else "")
-    return (f"kernel {r['ms']:.4f} ms{dev}, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+    def dev(key):
+        return (f" (device {r[key]:.4f} ms, profiler)" if key in r else "")
+    return (f"kernel {r['ms']:.4f} ms{dev('device_ms')}, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
+            f"{dev('library_device_ms')}, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
 
 
@@ -253,7 +255,8 @@ def k2_case(g, nb: int, t: int):
                 replaces="avlmaps_tpu/ops/fused_vit.py:149",
                 max_abs_err=err, ms=time_ms(k2), device_ms=device_ms(k2),
                 plain_ms=time_ms(p2, 3), bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(lib2)), qkv
+                library_ms=time_ms(lib2),
+                library_device_ms=device_ms(lib2)), qkv
 
 
 def k1_case(g, m: int, n: int):
@@ -287,7 +290,8 @@ def k1_case(g, m: int, n: int):
                 replaces="avlmaps_tpu/ops/fused_vit.py:438",
                 max_abs_err=err, ms=time_ms(k1), device_ms=device_ms(k1),
                 plain_ms=time_ms(p1, 3), bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(lib1))
+                library_ms=time_ms(lib1),
+                library_device_ms=device_ms(lib1))
 
 
 def k3_case(g, m: int):
@@ -326,7 +330,8 @@ def k3_case(g, m: int):
                 replaces="avlmaps_tpu/ops/fused_vit.py:321",
                 max_abs_err=err, ms=time_ms(k3), device_ms=device_ms(k3),
                 plain_ms=time_ms(p3, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib3))
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib3),
+                library_device_ms=device_ms(lib3))
 
 
 def kernel_checks():
@@ -887,7 +892,8 @@ def vit_kernel_checks():
                      replaces="avlmaps_tpu/ops/fused_vit.py:459",
                      max_abs_err=err, ms=time_ms(k6), device_ms=device_ms(k6),
                      plain_ms=time_ms(p6, 3),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib6)))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib6),
+                     library_device_ms=device_ms(lib6)))
     del x
 
     # K2 on (B, H, T, D): the flash/splash layout, 8 crops x 16 heads
@@ -911,7 +917,8 @@ def vit_kernel_checks():
                      replaces="avlmaps_tpu/models/lseg/vit.py:81",
                      max_abs_err=err, ms=time_ms(k2), device_ms=device_ms(k2),
                      plain_ms=time_ms(p2, 3), bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lib2)))
+                     library_ms=time_ms(lib2),
+                     library_device_ms=device_ms(lib2)))
     for r in rows:
         print(f"  {r['name']}: {_times(r)}")
     return rows
@@ -1779,7 +1786,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{k: r[k] for k in keys} for r in rows + [k5_row] + vit_rows]
     print(json.dumps({"more_shapes": [
-        {k: r[k] for k in ("shape", "device_ms") + keys} for r in thr_rows]}))
+        {k: r[k] for k in ("shape", "device_ms", "library_device_ms") + keys}
+        for r in thr_rows]}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {
