@@ -517,7 +517,7 @@ constexpr int WG_STG = 2 * 2 * 64 * 64;  // staging: 2 pieces a warpgroup
 
 // Whether the epilogue stages the tile for TMA stores (wgmma_gemm_kernel).
 template <int EPI, int TBN>
-constexpr bool wg_staged() {
+__host__ __device__ constexpr bool wg_staged() {
   return EPI == EPI_BIAS && TBN != 256;
 }
 
