@@ -85,14 +85,24 @@ def _crop_batch(images: torch.Tensor, base_size: int, crop_size: int):
 
 
 def sliding_window_features(apply_fn: Callable, images: torch.Tensor,
-                            base_size: int = 520,
-                            crop_size: int = 480) -> torch.Tensor:
+                            base_size: int = 520, crop_size: int = 480,
+                            flip: bool = False) -> torch.Tensor:
     """Full-canvas pixel features (B, height, width, D) f32 for a batch of
-    normalised (B, H, W, 3) frames."""
+    normalised (B, H, W, 3) frames.
+
+    ``flip=True`` adds the horizontally mirrored evaluation of every padded
+    crop, mirrored back (the reference's module_inference,
+    additional_utils/models.py:134-140: a SUM, not an average); the
+    mirrored crops join the same batched forward."""
     b = images.shape[0]
     batch, (height, width, ph, pw, crops) = _crop_batch(images, base_size,
                                                         crop_size)
+    if flip:
+        batch = torch.cat([batch, batch.flip(2)])
     feats = apply_fn(batch)
+    if flip:
+        n = batch.shape[0] // 2
+        feats = feats[:n] + feats[n:].flip(2)
     if feats.shape[1] != crop_size or feats.shape[2] != crop_size:
         raise ValueError(
             f"model output {tuple(feats.shape[1:3])} != crop {crop_size}: the "

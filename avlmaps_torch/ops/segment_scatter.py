@@ -23,9 +23,10 @@ assembled f32 update; a CUDA tensor launches the kernel of
   either.
 
 Both kernels sum each run of equal slots in row order and add it once, so
-the two give bitwise-equal rows for one batch.  The contents of the trash
-row are unspecified: the plain version adds its rows, the kernels skip
-them.
+the two give bitwise-equal rows for one batch.  A wrapper call enqueues one
+kernel launch and nothing else: the kernel finds the runs itself and reads
+only its arguments.  The contents of the trash row are unspecified: the
+plain version adds its rows, the kernels skip them.
 """
 
 from __future__ import annotations
@@ -47,10 +48,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("segment_scatter")
     if not getattr(lib, "_avl_bound", False):
         fn = lib.avl_segment_scatter_add_split
-        fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]
         fn.restype = ctypes.c_int
         fn = lib.avl_segment_scatter_add
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
         fn.restype = ctypes.c_int
         lib._avl_bound = True
     return lib
@@ -75,13 +76,6 @@ def _check_cuda(name: str, accum: torch.Tensor, slots: torch.Tensor,
     for t in (accum, slots, *rows):
         _require(t.device == accum.device and t.is_contiguous(),
                  f"{name}: inputs must be contiguous and on one device")
-
-
-def _run_starts(slots: torch.Tensor) -> torch.Tensor:
-    """1 where a run of equal slots starts (plain torch, no host sync)."""
-    start = torch.ones(slots.shape[0], dtype=torch.uint8, device=slots.device)
-    start[1:] = slots[1:] != slots[:-1]
-    return start
 
 
 def _skip_slot(s: int) -> int:
@@ -127,15 +121,10 @@ def split_kernel(accum: torch.Tensor, slots: torch.Tensor,
     _require(d % 32 == 0 and wd % 32 == 0 and wd <= 1024,
              f"{name}: the split kernel needs d, W multiples of 32 and "
              f"W <= 1024, got d={d}, W={wd}")
-    # ``start`` must outlive the call: a temporary would go back to the
-    # caching allocator before the launch, and another thread's allocation
-    # could take its block and overwrite the flags ahead of the kernel
-    start = _run_starts(slots)
     rc = _lib().avl_segment_scatter_add_split(
-        accum.data_ptr(), slots.data_ptr(), start.data_ptr(),
-        feats.data_ptr(), int(feats.dtype == torch.bfloat16), w.data_ptr(),
-        aux.data_ptr(), b, d, wd, _skip_slot(s),
-        torch.cuda.current_stream().cuda_stream)
+        accum.data_ptr(), slots.data_ptr(), feats.data_ptr(),
+        int(feats.dtype == torch.bfloat16), w.data_ptr(), aux.data_ptr(), b,
+        d, wd, _skip_slot(s), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
     sorted_segment_scatter_add_split.launches += 1
@@ -205,11 +194,9 @@ def sorted_segment_scatter_add(accum: torch.Tensor, slots: torch.Tensor,
     updates = updates.float().contiguous()
     _check_cuda(name, accum, slots, updates)
     _require(updates.shape == (b, wd), f"{name}: shape mismatch")
-    start = _run_starts(slots)  # held across the launch, as in K4
     rc = _lib().avl_segment_scatter_add(
-        accum.data_ptr(), slots.data_ptr(), start.data_ptr(),
-        updates.data_ptr(), b, wd, _skip_slot(s),
-        torch.cuda.current_stream().cuda_stream)
+        accum.data_ptr(), slots.data_ptr(), updates.data_ptr(), b, wd,
+        _skip_slot(s), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
     sorted_segment_scatter_add.launches += 1

@@ -26,7 +26,9 @@
    random weights) at gs=1000, cs=0.05, vh=30, capacity 1e6, D=512, batch
    4, canvas transport, sliding-window eval; checks the launch counts
    (K1-K3 24 per forward, K4 one per step), the map, the HDF5 reload, and
-   one crop's features against the CPU path of the same network.
+   one crop's features against the CPU path of the same network; then K4
+   on the warm-up build's real sorted step against its plain version and
+   bitwise against K5, with device times and the run-length profile.
 4. Slice 2, the object query: the full-width ViT-B/32 CLIP text tower
    (seeded weights) on the card against the port's CPU path; the serving
    query (``make_text_object_query``) at production scale (1e6 voxels x
@@ -50,8 +52,9 @@
    the frame transport (sliding, batch 4, 2 steps) against the canvas
    transport on the same frames and draws; K5 against its plain version
    bitwise against K4 and bitwise against itself with allocations of the
-   run-start mask's size made between its wrapper and its launch, on a
-   real 124,416-row sorted batch of the build; K1, K3 and K2 at the
+   batch's size made between its wrapper and its launch (the kernel reads
+   only its arguments), on a real 124,416-row sorted batch of the build,
+   with the batch's run-length profile; K1, K3 and K2 at the
    throughput build's shapes, and K1 at N = 4096 (the unfused fc);
    8-crop ViT-L taps with ``MLP_FUSE=False`` and ``attn_impl="flash"``
    against the default route; a medium f32 LSeg on the card against the
@@ -417,8 +420,11 @@ def kernel_checks():
                      fn=ss.sorted_segment_scatter_add_split, route="cuda",
                      source="avlmaps_torch/csrc/segment_scatter.cu",
                      replaces="avlmaps_tpu/ops/segment_scatter.py:273",
-                     max_abs_err=err, ms=time_ms(k4), plain_ms=time_ms(p4),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib4)))
+                     max_abs_err=err, ms=time_ms(k4), device_ms=device_ms(k4),
+                     plain_ms=time_ms(p4), bound_ms=b_ms, bound_by=b_by,
+                     library_ms=time_ms(lib4),
+                     library_device_ms=device_ms(lib4),
+                     runs=run_lengths(slots)))
     for r in rows:
         print(f"  {r['name']}: {_times(r)}")
     return rows
@@ -431,6 +437,21 @@ def _uncounted(fn, *args):
     out = fn(*args)
     fn.launches = before
     return out
+
+
+def run_lengths(slots) -> dict:
+    """Run-length profile of a sorted batch: the runs of real slots, their
+    mean and longest length, the rows in runs longer than 32 and 256, and
+    the trash run's rows."""
+    import torch
+
+    vals, counts = torch.unique_consecutive(slots, return_counts=True)
+    real = vals != CAPACITY
+    c = counts[real]
+    return dict(runs=int(c.numel()), mean=round(float(c.float().mean()), 3),
+                max=int(c.max()), rows_over_32=int(c[c > 32].sum()),
+                rows_over_256=int(c[c > 256].sum()),
+                trash=int(counts[~real].sum()))
 
 
 def _clear_rows(scores, rel: float = 1e-5):
@@ -637,6 +658,17 @@ class PositionGate:
 
 
 GATE = None  # the PositionGate main() installs
+PATH_MS = {}  # the last profiled build's port kernels: ms a launch, by name
+
+
+def path_ms(kernel: str) -> float:
+    """ms a launch of ``kernel`` (every instantiation) in the last
+    profiled build."""
+    found = [v for k, v in PATH_MS.items() if kernel in k]
+    if len(found) != 1:
+        raise AssertionError(f"{kernel}: {len(found)} instantiations in "
+                             "the profiled build, expected 1")
+    return found[0]
 
 
 def profile_build(b, steps: int, attribute: bool = False) -> float:
@@ -663,12 +695,14 @@ def profile_build(b, steps: int, attribute: bool = False) -> float:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+    PATH_MS.clear()
     for e in kernels:
         name = next((k for k in PORT_KERNELS if k in e.key), None)
         if name is not None:
             print(f"    port kernel {name}: {e.count}x, "
                   f"{e.self_device_time_total / 1e3 / e.count:.4f} ms each "
                   f"({e.key[:60]})")
+            PATH_MS[e.key] = e.self_device_time_total / 1e3 / e.count
     if attribute:
         attribute_ops(prof, steps)
     return step_ms
@@ -747,12 +781,13 @@ def producer_ms(loader) -> float:
 def slice_run(rows, tmp: Path):
     """The map build at full width, with launch counts and output checks;
     returns the scene directory, whose ``vlmap/vlmaps.h5df`` holds the map,
-    and the network."""
+    the network, and the fusion inputs of the warm-up build's step."""
     import torch
 
     from avlmaps_torch.config import load_config
     from avlmaps_torch.geometry.transforms import (build_base2cam_tf,
                                                    build_base_transform)
+    from avlmaps_torch.map import vlmap_builder as vb
     from avlmaps_torch.map.vlmap_builder import VLMapBuilder
     from avlmaps_torch.map.voxel_map import SparseVoxelMap
     from avlmaps_torch.models.lseg import (LOGIT_SCALE, LSegConfig, LSegNet,
@@ -789,7 +824,19 @@ def slice_run(rows, tmp: Path):
     warm = write_scene(tmp / "warm", N_WARM, seed=1)
     scene = write_scene(tmp / "scene", N_FRAMES, seed=0)
     print(f"  scenes written in {time.perf_counter() - t0:.1f} s")
-    builder(warm).create_mobile_base_map(save_every=0, progress=False)
+    # the warm-up build (one step) hands K4's real-step check its inputs
+    captured, fuse = [], vb.fuse_points
+
+    def capture(state, *args, **kw):
+        if not captured:
+            captured.extend(a.clone() for a in args)
+        return fuse(state, *args, **kw)
+
+    vb.fuse_points = capture
+    try:
+        builder(warm).create_mobile_base_map(save_every=0, progress=False)
+    finally:
+        vb.fuse_points = fuse
 
     for r in rows:
         r["fn"].launches = 0
@@ -807,6 +854,7 @@ def slice_run(rows, tmp: Path):
     producer_ms = time_producer(scene, mc, N_FRAMES)
     prof_scene = write_scene(tmp / "prof", N_PROF * BATCH, seed=2)
     device_ms = profile_build(builder(prof_scene), N_PROF)
+    rows[3]["path"] = path_ms("segment_scatter_kernel")
 
     stats = b.build_stats
     print(f"  frames={stats['frames']} voxels={stats['voxels']} "
@@ -861,7 +909,7 @@ def slice_run(rows, tmp: Path):
     if float(cos.min()) < 0.999:
         raise AssertionError("card features disagree with the CPU path")
     del cpu_net
-    return scene, net
+    return scene, net, captured
 
 
 def vit_kernel_checks():
@@ -1097,6 +1145,7 @@ def throughput_run(net, tmp: Path, k5_row, path_rows):
         lambda: PackedLoader(pk, poses, batch_size=THR_BATCH,
                              raw_canvas=True, device="cuda"),
         attribute=True)
+    k5_row["path"] = path_ms("segment_scatter_kernel")
     k5_row["launches"] = counts["sorted_segment_scatter_add"]
     want = {"ln_matmul": LAYERS * steps, "mha_oneshot_2d": LAYERS * steps,
             "ln_mlp_residual": LAYERS * steps,
@@ -1150,15 +1199,15 @@ def throughput_shape_checks(thr_t: int, launches: dict):
 
 class _AllocatingLib:
     """The kernel library with one launch function wrapped: just before it
-    forwards, it allocates ``torch.zeros`` of the run-start mask's size on
-    the launch's stream until one overlaps the mask (at most 16) -- what
-    the loader's producer thread may do between the wrapper's allocation
-    and the launch.  A mask freed before the launch would be zeroed ahead
-    of the kernel (tests/test_torch_cuda.py holds the same)."""
+    forwards, it allocates 16 ``torch.zeros`` of the batch's row count on
+    the launch's stream -- what the loader's producer thread may do between
+    the wrapper's checks and the launch.  A kernel that read anything but
+    its arguments (a scratch tensor the wrapper let go of) could find its
+    block zeroed ahead of the launch (tests/test_torch_cuda.py holds the
+    same)."""
 
     def __init__(self, lib, name: str, n_rows: int):
         self._lib, self._name, self._n = lib, name, n_rows
-        self.overlapped = False
         self.held = []
 
     def __getattr__(self, attr):
@@ -1169,17 +1218,72 @@ class _AllocatingLib:
             return fn
 
         def launch(*args):
-            mask = args[2]  # (accum, slots, start, ...)
             for _ in range(16):
-                z = torch.zeros(self._n, dtype=torch.uint8, device="cuda")
-                self.held.append(z)
-                p = z.data_ptr()
-                if p < mask + self._n and mask < p + self._n:
-                    self.overlapped = True
-                    break
+                self.held.append(torch.zeros(self._n, dtype=torch.uint8,
+                                             device="cuda"))
             return fn(*args)
 
         return launch
+
+
+def _sorted_step(captured):
+    """A captured fusion step sorted into a fresh state, as fuse_points
+    hands it to K4/K5."""
+    from avlmaps_torch.ops import voxel_fusion as vf
+
+    mc, _ = _map_setup()
+    state = vf.init_fusion_state(mc.gs, mc.vh, FEAT, CAPACITY, device="cuda")
+    return vf.sort_batch(state, *captured, gs=mc.gs, vh=mc.vh)
+
+
+def k4_real_check(captured, k4_row):
+    """K4 on a real sorted batch-4 sliding step (the warm-up build's)
+    against its plain version and bitwise against K5 on the same batch,
+    with its device time beside index_add_'s and its bound."""
+    import torch
+
+    from avlmaps_torch.ops import segment_scatter as ss
+
+    sb = _sorted_step(captured)
+    update = torch.cat([sb.w[:, None] * sb.feats.float(), sb.aux], dim=1)
+    base = torch.zeros(CAPACITY + 1, ACCUM_W, device="cuda")
+    k4 = ss.sorted_segment_scatter_add_split
+    got = _uncounted(k4, base.clone(), sb.slots, sb.feats, sb.w, sb.aux)
+    want = ss.sorted_segment_scatter_add_split_ref(base.clone(), sb.slots,
+                                                   sb.feats, sb.w, sb.aux)
+    err = compare(f"K4 on a real batch-{BATCH} step ({sb.slots.numel()} "
+                  "rows)", got[:CAPACITY], want[:CAPACITY], 1e-4, 1e-5)
+    del want
+    k5 = _uncounted(ss.sorted_segment_scatter_add, base.clone(), sb.slots,
+                    update)
+    same = torch.equal(got[:CAPACITY], k5[:CAPACITY])
+    print(f"  {'pass' if same else 'FAIL'}: K4 == K5 bitwise on rows "
+          f"[0, {CAPACITY}) of the real step")
+    if not same:
+        raise AssertionError("K4 and K5 disagree on the real step")
+    del got, k5
+    real = sb.slots[sb.slots != CAPACITY]
+    n_rows, n_unique = int(real.numel()), int(torch.unique(real).numel())
+    esz = sb.feats.element_size()
+    b_ms, b_by = bound(2 * n_rows * ACCUM_W,
+                       n_rows * (esz * FEAT + 4 + 4 * (ACCUM_W - FEAT) + 4)
+                       + n_unique * ACCUM_W * 8, PEAK_F32)
+    acc, idx = base, sb.slots.long()
+    before = k4.launches
+    step = dict(rows=int(sb.slots.numel()), feats=str(sb.feats.dtype)[6:],
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                device_ms=device_ms(lambda: k4(acc, sb.slots, sb.feats, sb.w,
+                                               sb.aux)),
+                library_device_ms=device_ms(
+                    lambda: acc.index_add_(0, idx, update)),
+                runs=run_lengths(sb.slots))
+    k4.launches = before
+    k4_row["real_step"] = step
+    print(f"  K4 on the real step: device {step['device_ms']:.4f} ms "
+          f"(profiler), index_add_ {step['library_device_ms']:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}); runs {step['runs']}")
+    del acc, base, update, idx
+    torch.cuda.empty_cache()
 
 
 def k5_check(captured, k5_row):
@@ -1189,11 +1293,8 @@ def k5_check(captured, k5_row):
     import torch
 
     from avlmaps_torch.ops import segment_scatter as ss
-    from avlmaps_torch.ops import voxel_fusion as vf
 
-    mc, _ = _map_setup()
-    state = vf.init_fusion_state(mc.gs, mc.vh, FEAT, CAPACITY, device="cuda")
-    sb = vf.sort_batch(state, *captured, gs=mc.gs, vh=mc.vh)
+    sb = _sorted_step(captured)
     update = torch.cat([sb.w[:, None] * sb.feats.float(), sb.aux], dim=1)
     base = torch.zeros(CAPACITY + 1, ACCUM_W, device="cuda")
     got = _uncounted(ss.sorted_segment_scatter_add, base.clone(), sb.slots,
@@ -1212,9 +1313,9 @@ def k5_check(captured, k5_row):
     if not same:
         raise AssertionError("K5 and K4 disagree on one batch")
     del split
-    # the run-start mask outlives the launch: allocations of its size
-    # between the wrapper's mask and the launch, as the loader's producer
-    # thread may make, change no bit
+    # the kernel reads only its arguments: allocations of the batch's size
+    # between the wrapper and the launch, as the loader's producer thread
+    # may make, change no bit
     lib = _AllocatingLib(ss._lib(), "avl_segment_scatter_add", THR_POINTS)
     load = ss._lib
     ss._lib = lambda: lib
@@ -1223,14 +1324,13 @@ def k5_check(captured, k5_row):
                            sb.slots, update)
     finally:
         ss._lib = load
-    same = torch.equal(stood[:CAPACITY], got[:CAPACITY])
+    same = torch.equal(stood[:CAPACITY], got[:CAPACITY]) and bool(lib.held)
     print(f"  {'pass' if same else 'FAIL'}: K5 with {len(lib.held)} "
-          "allocations of the run-start mask's size just before its launch "
-          f"== K5 bitwise (an allocation overlapped the mask: "
-          f"{lib.overlapped})")
-    if not same or lib.overlapped:
-        raise AssertionError("K5 read a run-start mask freed before its "
-                             "launch")
+          "allocations of the batch's size just before its launch == K5 "
+          "bitwise")
+    if not same:
+        raise AssertionError("K5 changed with allocations made between its "
+                             "wrapper and its launch")
     del got, stood
     real = sb.slots[sb.slots != CAPACITY]
     n_rows, n_unique = int(real.numel()), int(torch.unique(real).numel())
@@ -1246,12 +1346,15 @@ def k5_check(captured, k5_row):
     p5 = lambda: ss.sorted_segment_scatter_add_ref(acc, sb.slots,  # noqa: E731
                                                    update)
     lib5 = lambda: acc.index_add_(0, sb.slots.long(), update)  # noqa: E731
-    k5_row.update(max_abs_err=err, ms=time_ms(k5), plain_ms=time_ms(p5),
-                  bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib5))
+    k5_row.update(max_abs_err=err, ms=time_ms(k5), device_ms=device_ms(k5),
+                  plain_ms=time_ms(p5), bound_ms=b_ms, bound_by=b_by,
+                  library_ms=time_ms(lib5),
+                  library_device_ms=device_ms(lib5),
+                  runs=run_lengths(sb.slots))
     ss.sorted_segment_scatter_add.launches = before
-    print(f"  sorted_segment_scatter_add: kernel {k5_row['ms']:.4f} ms, plain "
-          f"{k5_row['plain_ms']:.4f} ms, library {k5_row['library_ms']:.4f} "
-          f"ms, bound {k5_row['bound_ms']:.4f} ms ({k5_row['bound_by']})")
+    print(f"  sorted_segment_scatter_add: {_times(k5_row)}; path "
+          f"{k5_row['path']:.4f} ms a launch in the build's profile; runs "
+          f"{k5_row['runs']}")
     del acc, base, update
     torch.cuda.empty_cache()
 
@@ -1743,7 +1846,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         print("slice 1: ViT-L/16 bf16 map build, 720x1080, gs=1000 vh=30 "
               "cap=1e6:")
-        scene, net = slice_run(rows[:4], Path(tmp))
+        scene, net, k4_step = slice_run(rows[:4], Path(tmp))
+        print(f"K4 on a real batch-{BATCH} sliding step (the warm-up "
+              "build's):")
+        k4_real_check(k4_step, rows[3])
+        del k4_step
         print("slice 3: throughput build, 64 packed 720x1080 frames, device "
               "sampling, whole canvas, batch 16:")
         captured, thr_t, thr_launches = throughput_run(net, Path(tmp),
@@ -1784,7 +1891,12 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    table = [{k: r[k] for k in keys} for r in rows + [k5_row] + vit_rows]
+    extra = {"device_ms": "dev", "path": "path",
+             "library_device_ms": "library_dev", "runs": "runs",
+             "real_step": "real_step"}
+    table = [{**{k: r[k] for k in keys},
+              **{v: r[k] for k, v in extra.items() if k in r}}
+             for r in rows + [k5_row] + vit_rows]
     print(json.dumps({"more_shapes": [
         {k: r[k] for k in ("shape", "device_ms", "library_device_ms") + keys}
         for r in thr_rows]}))

@@ -10,12 +10,14 @@ Shapes are small but inside what each kernel takes (width 256, head dim
 64, a partial last row block; for K7/K8 odd row counts, D from 24 to 768
 and a C that needs two shared-memory chunks); chip_smoke.py repeats the
 checks at the map-building and serving-query shapes.  K5 is held equal to
-K4 bit for bit on the same batch, and a K4 batch the split kernel cannot
-take (W = 1152) goes through K5 instead of raising.
+K4 bit for bit on the same batch, both are held bit for bit to an in-order
+f32 sum per run on the CPU, and a K4 batch the split kernel cannot take
+(W = 1152) goes through K5 instead of raising.
 """
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -179,15 +181,14 @@ def test_assembled_kernel_matches_plain_and_split_bitwise(gen, rows):
 
 class _AllocatingLib:
     """The kernel library with one launch function wrapped: just before it
-    forwards, the wrapper allocates ``torch.zeros`` of the run-start
-    mask's size on the launch's stream -- as the loader's producer thread
-    may between the wrapper's allocation and the launch -- until one of
-    them overlaps the mask (up to 16).  A mask freed before the launch is
-    then zeroed ahead of the kernel; a held one cannot be overlapped."""
+    forwards, it allocates 16 ``torch.zeros`` of the batch's row count on
+    the launch's stream, as the loader's producer thread may between the
+    wrapper's checks and the launch.  A kernel that read anything but its
+    arguments -- a scratch tensor the wrapper let go of -- could find its
+    block zeroed ahead of the launch."""
 
     def __init__(self, lib, name: str, n_rows: int):
         self._lib, self._name, self._n = lib, name, n_rows
-        self.overlapped = False
         self.held = []
 
     def __getattr__(self, attr):
@@ -196,41 +197,114 @@ class _AllocatingLib:
             return fn
 
         def launch(*args):
-            mask = args[2]  # (accum, slots, start, ...)
             for _ in range(16):
-                z = torch.zeros(self._n, dtype=torch.uint8, device="cuda")
-                self.held.append(z)
-                p = z.data_ptr()
-                if p < mask + self._n and mask < p + self._n:
-                    self.overlapped = True
-                    break
+                self.held.append(torch.zeros(self._n, dtype=torch.uint8,
+                                             device="cuda"))
             return fn(*args)
 
         return launch
 
 
 @pytest.mark.parametrize("kernel", ["split", "assembled"])
-def test_run_start_mask_outlives_the_launch(gen, monkeypatch, kernel):
-    """K4 and K5 with an allocation between the wrapper's mask and the
-    launch: the kernels must still read the mask's run starts."""
+def test_launch_reads_only_its_arguments(gen, monkeypatch, kernel):
+    """K4 and K5 with allocations between the wrapper and the launch give
+    the bits they give alone."""
     b, cap, d = 3000, 5000, 512
     slots, feats, w, aux = _sorted_batch(gen, b, cap, d, 128)
     base = torch.randn(cap + 1, d + 128, generator=gen, device="cuda")
-    want = ss.sorted_segment_scatter_add_split_ref(base.clone(), slots,
-                                                   feats, w, aux)
+    update = torch.cat([w[:, None] * feats, aux], 1)
+
+    def run():
+        if kernel == "split":
+            return ss.split_kernel(base.clone(), slots, feats, w, aux)
+        return ss.sorted_segment_scatter_add(base.clone(), slots, update)
+
+    alone = run()
     name = ("avl_segment_scatter_add_split" if kernel == "split"
             else "avl_segment_scatter_add")
     lib = _AllocatingLib(ss._lib(), name, b)
     monkeypatch.setattr(ss, "_lib", lambda: lib)
-    if kernel == "split":
-        got = ss.split_kernel(base.clone(), slots, feats, w, aux)
-    else:
-        got = ss.sorted_segment_scatter_add(
-            base.clone(), slots, torch.cat([w[:, None] * feats, aux], 1))
+    got = run()
     torch.cuda.synchronize()
     assert lib.held, "the launch did not go through the wrapped library"
+    assert torch.equal(got, alone)
+    want = ss.sorted_segment_scatter_add_split_ref(base.clone(), slots,
+                                                   feats, w, aux)
     torch.testing.assert_close(got[:cap], want[:cap], atol=1e-4, rtol=1e-5)
-    assert not lib.overlapped, "an allocation overlapped the mask"
+
+
+def _sequential(base, slots, rows, skip):
+    """The accumulator after each run's f32 rows are summed one by one in
+    row order from 0 and the sum added to its slot once (CPU, numpy)."""
+    out = base.cpu().numpy().copy()
+    s = slots.cpu().numpy()
+    rows = rows.cpu().numpy()
+    k, b = 0, len(s)
+    while k < b:
+        e = k
+        while e < b and s[e] == s[k]:
+            e += 1
+        if s[k] != skip:
+            acc = np.zeros(rows.shape[1], np.float32)
+            for r in range(k, e):
+                acc += rows[r]
+            out[s[k]] += acc
+        k = e
+    return torch.from_numpy(out)
+
+
+# (rows, distinct slots or a pattern, feature type, W): a run past the
+# kernel's 32-row column-split threshold, runs of ~40 rows crossing its
+# 32-row tiles (a tile inside a run owns none), one slot for the whole
+# batch, a batch all in the trash run, all-unique slots, bf16 features,
+# and K5 alone at W = 2100 (a float4 row of 17 column groups) and W =
+# 2099 (one column a lane)
+RUN_CASES = {
+    "long_run": (3000, "long", torch.float32, 640),
+    "tile_crossing": (3000, 75, torch.float32, 640),
+    "one_slot": (3000, 1, torch.float32, 640),
+    "all_trash": (3000, "trash", torch.float32, 640),
+    "unique": (3000, "unique", torch.float32, 640),
+    "bf16": (3000, 400, torch.bfloat16, 640),
+    "wide_k5": (2000, 300, torch.float32, 2100),
+    "odd_width_k5": (2000, 300, torch.float32, 2099),
+}
+
+
+@pytest.mark.parametrize("case", list(RUN_CASES))
+def test_segment_scatter_sums_each_run_in_row_order(gen, case):
+    """K4 and K5 give the bits of an in-order f32 sum per run: the split
+    mode multiplies w * feat, then adds; the trash run is left out."""
+    b, pattern, ftype, wd = RUN_CASES[case]
+    cap, d = 5000, 512
+    if pattern == "long":
+        slots = torch.sort(torch.randint(0, 400, (b,), generator=gen,
+                                         device="cuda"))[0]
+        slots[1000:1500] = slots[1000]
+    elif pattern == "trash":
+        slots = torch.full((b,), cap, device="cuda")
+    elif pattern == "unique":
+        slots = torch.arange(b, device="cuda") * (cap // b)
+    else:
+        slots = torch.sort(torch.randint(0, pattern, (b,), generator=gen,
+                                         device="cuda"))[0] * 7
+    slots = slots.to(torch.int32)
+    base = torch.randn(cap + 1, wd, generator=gen, device="cuda")
+    if wd > 1024:  # K5 alone: the split kernel takes W <= 1024
+        update = torch.randn(b, wd, generator=gen, device="cuda")
+        want = _sequential(base, slots, update, cap)
+        got = ss.sorted_segment_scatter_add(base.clone(), slots, update)
+        assert torch.equal(got.cpu(), want)
+        return
+    feats = _randn(gen, b, d, dtype=ftype)
+    w = torch.rand(b, generator=gen, device="cuda")
+    aux = _randn(gen, b, wd - d, dtype=torch.float32)
+    update = torch.cat([w[:, None] * feats.float(), aux], 1)
+    want = _sequential(base, slots, update, cap)
+    k4 = ss.split_kernel(base.clone(), slots, feats, w, aux)
+    k5 = ss.sorted_segment_scatter_add(base.clone(), slots, update)
+    assert torch.equal(k4.cpu(), want)
+    assert torch.equal(k5.cpu(), want)
 
 
 @pytest.mark.parametrize("wd", [640, 2100])

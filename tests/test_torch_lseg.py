@@ -250,6 +250,24 @@ def test_window_features_match_jax():
                                    atol=5e-3)
 
 
+def test_window_features_flip_match_jax():
+    """``flip=True``: the mirrored crops join the batch and their mirrored
+    output is summed in, as in JAX (tiny16, 48x48 frames, base 32 / crop
+    32, several overlapping windows)."""
+    jnet, variables, tnet = _pair("tiny16")
+    img = np.random.default_rng(6).normal(size=(2, 48, 48, 3)).astype(
+        np.float32)
+    ji, tx = jnp.asarray(img), torch.from_numpy(img)
+    with torch.no_grad():
+        got = twin.sliding_window_features(tnet, tx, 32, 32, flip=True)
+        plain = twin.sliding_window_features(tnet, tx, 32, 32)
+    want = np.asarray(jwin.sliding_window_features(jnet, variables, ji, 32,
+                                                   32, flip=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=5e-3, atol=5e-3)
+    # the mirrored pass is seen: the sum is not twice the unmirrored one
+    assert np.abs(got.numpy() - 2 * plain.numpy()).max() > 0.1
+
+
 def test_bilinear_patch_sample_matches_jax(rng):
     fmap = rng.normal(size=(2, 9, 11, 5)).astype(np.float32)
     sx = rng.uniform(0, 10, (2, 30)).astype(np.float32)
