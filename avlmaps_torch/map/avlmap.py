@@ -1,10 +1,12 @@
 """AVLMap: the facade over the modality maps, with cross-modal heatmaps.
 
 Counterpart of ``avlmaps_tpu/map/avlmap.py`` (reference
-avlmaps/map/avlmap.py).  The port has the object query over the voxel
-VLMap; the sound, area and visual maps are not ported yet, so the
-constructor builds the VLMap alone and every method that needs another
-modality raises ``NotImplementedError`` naming its ROADMAP.md item.
+avlmaps/map/avlmap.py): open-vocabulary object queries over the voxel
+VLMap, area queries over the sparse CLIP map and sound queries over the
+audio event database, each returned as a heatmap in [0, 1] for fusion.
+The visual map (image queries by visual localisation) is not ported yet:
+``create_map`` and ``load_map`` skip it and ``index_image`` raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -16,8 +18,12 @@ import numpy as np
 import torch
 
 from avlmaps_torch.config import AVLMapsConfig
+from avlmaps_torch.map.area_map import AreaMap
+from avlmaps_torch.map.sound_map import SoundMap
 from avlmaps_torch.map.vlmap import VLMap
-from avlmaps_torch.ops.heatmap import heatmap_from_mask_3d
+from avlmaps_torch.ops.heatmap import (decayed_point_heatmap_2d,
+                                       heatmap_from_mask_3d)
+from avlmaps_torch.ops.pooling import lift_2d_to_3d
 
 
 def _not_ported(what: str, item: str):
@@ -27,38 +33,73 @@ def _not_ported(what: str, item: str):
 
 
 class AVLMap:
-    """The object-query part of AVLMap on ``device`` (default ``"cuda"``;
-    raises without a card)."""
+    """The object, area and sound queries on ``device`` (default
+    ``"cuda"``; raises without a card): the encoders it makes, the
+    scoring kernels and the heat run there."""
 
     def __init__(self, config: AVLMapsConfig, data_dir: str = "",
-                 clip_encoder=None,
+                 clip_encoder=None, area_clip_encoder=None,
+                 audioclip_encoder=None,
                  device: Union[str, torch.device] = "cuda"):
         self.config = config
         clip_ckpt = getattr(config, "clip_ckpt", "")
-        if clip_encoder is None and (clip_ckpt or getattr(
+        audioclip_ckpt = getattr(config, "audioclip_ckpt", "")
+        if audioclip_encoder is None and audioclip_ckpt:
+            from avlmaps_torch.models.audioclip import AudioClipEncoder
+            from avlmaps_torch.models.audioclip.port import \
+                load_audioclip_checkpoint
+
+            ac_cfg, ac_params = load_audioclip_checkpoint(audioclip_ckpt)
+            audioclip_encoder = AudioClipEncoder(cfg=ac_cfg, params=ac_params,
+                                                 device=device)
+        if area_clip_encoder is None and (clip_ckpt or getattr(
                 config.map_config, "clip_variant", "")):
+            # an explicit variant (e.g. "tiny" for tests) or checkpoint:
+            # one encoder shared by the area map and the VLMap
             from avlmaps_torch.models.clip import ClipEncoder
 
-            clip_encoder = (ClipEncoder.from_checkpoint(clip_ckpt,
-                                                        device=device)
-                            if clip_ckpt else
-                            ClipEncoder(config.map_config.clip_variant,
-                                        device=device))
+            area_clip_encoder = (ClipEncoder.from_checkpoint(clip_ckpt,
+                                                             device=device)
+                                 if clip_ckpt else
+                                 ClipEncoder(config.map_config.clip_variant,
+                                             device=device))
         self.vlmap = VLMap(config.map_config, data_dir=data_dir,
-                           clip_encoder=clip_encoder,
+                           clip_encoder=clip_encoder or area_clip_encoder,
                            lseg_ckpt=getattr(config, "lseg_ckpt", ""),
                            clip_ckpt=clip_ckpt, device=device)
+        self.sound_map = SoundMap(data_dir, config.sound_config,
+                                  config.sound_data_collect_params,
+                                  is_ambiguous=False, is_real=False,
+                                  audioclip_encoder=audioclip_encoder,
+                                  device=device)
+        self.area_map = AreaMap(data_dir, clip_encoder=area_clip_encoder,
+                                device=device)
+        self.visual_map = None  # ROADMAP.md, Queue 1 item 6
+        self.dataloader = None
 
     # -- lifecycle (reference avlmap.py:38-56) ----------------------------
 
     def create_map(self, data_dir: Union[Path, str]) -> bool:
-        raise _not_ported("AVLMap.create_map (the area, visual and sound "
-                          "maps; VLMap.create_map is ported)", "items 12-14")
+        """Build the VLMap, the area map and the sound map of a scene.  The
+        visual map is skipped until it is ported (ROADMAP.md, Queue 1
+        item 6)."""
+        self.vlmap.create_map(data_dir)
+        self.area_map.create_map(data_dir)
+        self.sound_map.create_sound_map(data_dir)
+        return True
 
     def load_map(self, data_dir: Union[Path, str]) -> bool:
-        raise _not_ported("AVLMap.load_map (the area, visual and sound maps "
-                          "and the habitat dataloader; VLMap.load_map is "
-                          "ported)", "items 12-14")
+        """Load the VLMap, the area map and the sound map and build the
+        pose converter; the visual map is skipped (Queue 1 item 6)."""
+        from avlmaps_torch.dataloader.habitat_dataloader import \
+            VLMapsDataloaderHabitat
+
+        self.vlmap.load_map(data_dir)
+        self.area_map.load_map(data_dir)
+        self.sound_map.load_sound_map(data_dir)
+        self.dataloader = VLMapsDataloaderHabitat(
+            data_dir, self.config.map_config, self.vlmap)
+        return True
 
     # -- object (reference avlmap.py:67-77) -------------------------------
 
@@ -105,26 +146,94 @@ class AVLMap:
             return dlv.fetch_np(dlv.fused_goal_pick([heat], vm.grid_pos)[0])
         raise ValueError(f"unknown delivery format {delivery!r}")
 
-    # -- area, sound, image (reference avlmap.py:78-163) --------------------
+    # -- area (reference avlmap.py:78-109) ---------------------------------
 
     def index_area_2d(self, area_name: str, decay_rate: float = 0.1,
                       delivery: str = "f32"):
-        raise _not_ported("index_area_2d (the area map)", "item 13")
+        """Per-pose CLIP scores splatted as radial decays, max-composited.
 
-    def index_area(self, area_name: str, decay_rate: float = 0.1):
-        raise _not_ported("index_area (the area map)", "item 13")
+        The pose -> map-cell conversion stays on the host (per pose); the
+        decay stack and the min-max normalisation run on the device
+        (ops/heatmap.decayed_point_heatmap_2d).  ``delivery``: "f32"
+        (default, host array) / "u8" (1-byte wire format) / "device" (the
+        tensor left on the device)."""
+        shape = self.vlmap.occupied_ids.shape[:2]
+        scores = self.area_map.index_map(area_name, with_init_cat=False)
+        rng = scores.max() - scores.min()
+        scores = (scores - scores.min()) / (rng if rng > 0 else 1.0)
+
+        seeds, confs = [], []
+        for i, tf_hab in enumerate(self.area_map.robot_pose_list):
+            self.dataloader.from_habitat_tf(np.asarray(tf_hab))
+            row, col, _ = self.dataloader.to_full_map_pose()
+            if not (0 <= row < shape[0] and 0 <= col < shape[1]):
+                continue
+            seeds.append(np.array([[row, col]], np.float32))
+            confs.append(float(scores[i]))
+
+        return self._deliver_2d(decayed_point_heatmap_2d(
+            shape, seeds, confs, decay_rate, combine="max", normalize=True,
+            as_device=delivery != "f32", device=self.vlmap.device), delivery)
+
+    @staticmethod
+    def _deliver_2d(heat, delivery: str):
+        if delivery in ("f32", "device"):
+            return heat
+        from avlmaps_torch.ops import delivery as dlv
+
+        if delivery == "u8":
+            return dlv.dequantize_heat_u8(
+                dlv.fetch_np(dlv.quantize_heat_u8(heat)))
+        raise ValueError(f"unknown delivery format {delivery!r}")
+
+    def index_area(self, area_name: str,
+                   decay_rate: float = 0.1) -> np.ndarray:
+        heatmap_2d = self.index_area_2d(area_name, decay_rate)
+        return lift_2d_to_3d(heatmap_2d, self.vlmap.grid_pos)
+
+    # -- sound (reference avlmap.py:111-144) --------------------------------
 
     def index_sound_2d(self, sound_name: str, decay_rate: float = 0.01,
                        delivery: str = "f32"):
-        raise _not_ported("index_sound_2d (the sound map)", "item 12")
+        """Per-event confidence decays from the event's pose track, summed.
 
-    def index_sound(self, sound_name: str, decay_rate: float = 0.01):
-        raise _not_ported("index_sound (the sound map)", "item 12")
+        Each event's seed track (its min radial distance is the
+        multi-seed EDT), the sum composite and the min-max normalisation
+        run on the device (ops/heatmap.decayed_point_heatmap_2d).
+        ``delivery`` as in :meth:`index_area_2d`."""
+        probs, locations_list = \
+            self.sound_map.get_distribution_and_locations(sound_name)
+        shape = self.vlmap.occupied_ids.shape[:2]
+        tracks, confs = [], []
+        for loc_i, locations in enumerate(locations_list):
+            seeds = []
+            for location in locations:
+                tf_hab = np.eye(4)
+                tf_hab[:3, 3] = location
+                self.dataloader.from_habitat_tf(tf_hab)
+                row, col, _ = self.dataloader.to_full_map_pose()
+                if 0 <= row < shape[0] and 0 <= col < shape[1]:
+                    seeds.append((row, col))
+            if not seeds:
+                continue
+            tracks.append(np.asarray(seeds, np.float32))
+            confs.append(float(probs[loc_i]))
+
+        return self._deliver_2d(decayed_point_heatmap_2d(
+            shape, tracks, confs, decay_rate, combine="sum", normalize=True,
+            as_device=delivery != "f32", device=self.vlmap.device), delivery)
+
+    def index_sound(self, sound_name: str,
+                    decay_rate: float = 0.01) -> np.ndarray:
+        heatmap_2d = self.index_sound_2d(sound_name, decay_rate)
+        return lift_2d_to_3d(heatmap_2d, self.vlmap.grid_pos)
+
+    # -- image (reference avlmap.py:146-163) --------------------------------
 
     def index_image(self, image: np.ndarray,
                     query_cam_intrinsics: Optional[np.ndarray] = None,
                     decay_rate: float = 0.01):
-        raise _not_ported("index_image (the visual map)", "item 14")
+        raise _not_ported("index_image (the visual map)", "item 6")
 
     # -- visualization helper (reference avlmap.py:57-66) -----------------
 

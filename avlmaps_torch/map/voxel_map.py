@@ -24,7 +24,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Iterable, Optional, Set, Union
+from typing import Iterable, Optional, Sequence, Set, Union
 
 import numpy as np
 
@@ -62,6 +62,21 @@ def load_3d_map(map_path: Union[str, Path]):
     f = hdf5.read(map_path)
     return (f["mapped_iter_list"].tolist(), f["grid_feat"], f["grid_pos"],
             f["weight"], f["occupied_ids"], f.get("grid_rgb"))
+
+
+def save_clip_sparse_map(save_path: Union[str, Path],
+                         clip_sparse_map: np.ndarray,
+                         robot_pose_list: Sequence[np.ndarray]) -> None:
+    """AreaMap artifact (reference mapping_utils.py:637-641):
+    ``clip_sparse_map`` (N, D) and ``robot_pose_list`` (N, 4, 4)."""
+    hdf5.write(save_path, {"clip_sparse_map": np.asarray(clip_sparse_map),
+                           "robot_pose_list": np.asarray(robot_pose_list)})
+
+
+def load_clip_sparse_map(load_path: Union[str, Path]):
+    """(clip_sparse_map, robot_pose_list) of an AreaMap artifact."""
+    f = hdf5.read(load_path)
+    return f["clip_sparse_map"], f["robot_pose_list"]
 
 
 # ---------------------------------------------------------------------------

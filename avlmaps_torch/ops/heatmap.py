@@ -1,9 +1,10 @@
-"""3D heatmaps: 1 on target voxels, decaying with the distance elsewhere.
+"""Heatmaps: 1 on targets, decaying with the distance elsewhere.
 
-Counterpart of the 3D half of ``avlmaps_tpu/ops/heatmap.py`` (the 2D EDT
-and the decay stacks serve the area and sound maps and are not ported
-yet).  The reference loops over every non-target voxel with a full scan of
-the targets (avlmaps/utils/visualize_utils.py:29-49, O(N*M)).  Here, as in
+Counterpart of ``avlmaps_tpu/ops/heatmap.py``.  The 2D half (the exact
+EDT, the banded 2D heat and the per-event radial decay stacks of the area
+and sound queries) sits at the end of the module.  In 3D the reference
+loops over every non-target voxel with a full scan of the targets
+(avlmaps/utils/visualize_utils.py:29-49, O(N*M)).  Here, as in
 the JAX package, two exact device paths:
 
 * dense: scatter the targets into the bounding grid, run a banded
@@ -251,3 +252,184 @@ def heatmap_from_mask_3d(grid_pos, mask, cell_size: float = 0.05,
     dists = _min_dist_to_targets(pos_dev, targets) / cell_size
     heat = torch.clamp(1.0 - dists * decay_rate, 0.0, 1.0)
     return finish(torch.where(mask_dev, torch.ones_like(heat), heat))
+
+
+# ---------------------------------------------------------------------------
+# 2D: exact EDT, banded heat, and the per-event decay stacks
+# ---------------------------------------------------------------------------
+
+_FAR = 1.0e6  # seed coordinate that lies beyond every grid
+
+
+def _tensor_on(a, device) -> torch.Tensor:
+    """``a`` where it lies if a tensor, else on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return to_device(a, resolve_device(device))
+
+
+def distance_transform_edt(zero_mask: torch.Tensor,
+                           row_chunk: int = 16) -> torch.Tensor:
+    """Exact EDT: distance from each pixel to the nearest True pixel, i.e.
+    ``scipy.ndimage.distance_transform_edt(~zero_mask)``; the counterpart
+    of ``avlmaps_tpu``'s ``distance_transform_edt_jax``.
+
+    Pass 1 takes each column's row distance to its nearest zero (capped
+    at h + w + 1, as the JAX sweeps are) from running maxima of the zero
+    rows above and below; pass 2 is the exact lower envelope
+    ``D(i, j)^2 = min_k G(i, k)^2 + (j - k)^2`` as a broadcast min over
+    ``row_chunk`` rows at a time.  Every value is an integer below 2^24
+    until the square root, so both packages give the same bits."""
+    h, w = zero_mask.shape
+    dev = zero_mask.device
+    big = float(h + w + 1)
+    rows = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    neg = torch.tensor(-big * 4, device=dev)
+    above = torch.cummax(torch.where(zero_mask, rows, neg), dim=0).values
+    below = torch.flip(torch.cummax(torch.flip(
+        torch.where(zero_mask, -rows, neg), [0]), dim=0).values, [0])
+    g = torch.minimum(rows - above, -below - rows).clamp_(max=big)
+
+    cols = torch.arange(w, device=dev, dtype=torch.float32)
+    dx2 = (cols[:, None] - cols[None, :]) ** 2  # (j, k)
+    g2 = g * g
+    d2 = torch.empty_like(g2)
+    for r0 in range(0, h, row_chunk):
+        block = g2[r0:r0 + row_chunk]
+        d2[r0:r0 + row_chunk] = torch.amin(block[:, None, :] + dx2[None],
+                                           dim=-1)
+    return torch.sqrt(d2)
+
+
+def _banded_heat_2d(zero_mask: torch.Tensor, r: int,
+                    decay_per_cell: float) -> torch.Tensor:
+    """Banded 2D squared EDT + decay: exact wherever the heat is nonzero
+    (distances <= r) and clipped to zero beyond, as the full EDT would
+    give, at O(cells x band)."""
+    d2 = torch.where(zero_mask, 0.0, _INF).float()
+    d2 = _banded_axis_pass(d2, r, 0)
+    d2 = _banded_axis_pass(d2, r, 1)
+    return torch.clamp(1.0 - torch.sqrt(d2) * decay_per_cell, 0.0, 1.0)
+
+
+def heatmap_from_mask_2d(mask, cell_size: float = 0.05,
+                         decay_rate: float = 0.01, as_device: bool = False,
+                         device: Union[str, torch.device] = "cuda"):
+    """2D heatmap via EDT decay (reference get_heatmap_from_mask_2d,
+    visualize_utils.py:97-102).  The decay reaches zero at
+    ``cell_size / decay_rate`` pixels, so when that band fits the banded
+    EDT replaces the full one; the output is the same either way.
+
+    ``mask``: a tensor (used where it lies) or a host array, which goes
+    to ``device`` (default ``"cuda"``; raises without a card).  Returns
+    host f32, or the tensor with ``as_device=True``."""
+    zero = _tensor_on(mask, device) != 0
+    decay_per_cell = decay_rate / cell_size
+    heat = None
+    if decay_rate > 0:
+        r = int(np.ceil(1.0 / decay_per_cell)) + 1
+        if r <= _DENSE_MAX_BAND:
+            heat = _banded_heat_2d(zero, r, float(decay_per_cell))
+    if heat is None:
+        dists = distance_transform_edt(zero) / cell_size
+        heat = torch.clamp(1.0 - dists * decay_rate, min=0.0)
+    return heat if as_device else heat.cpu().numpy()
+
+
+def radial_decay_heatmap(grid_pos, center, decay_rate: float = 0.01,
+                         confidence: float = 1.0,
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> torch.Tensor:
+    """Planar radial decay from one map position (reference
+    AVLMap.index_image, avlmap.py:146-163): distances use only (row,
+    col).  Returns the (N,) tensor on the device of ``grid_pos``."""
+    pos = _tensor_on(grid_pos, device)
+    c = to_device(center, pos.device, torch.float32)
+    d = torch.linalg.vector_norm(pos[:, :2].float() - c[:2], dim=1)
+    return torch.clamp(confidence - decay_rate * d, 0.0, 1.0)
+
+
+def _stacked_decay_scan(tracks, confidences, h: int, w: int,
+                        decay_rate: float, combine: str,
+                        normalize: bool = False,
+                        chunk_bytes: int = 1 << 26) -> torch.Tensor:
+    """Per event: the min radial distance over its seed track, the decay
+    layer, and the max or sum composite, folded in event order as the JAX
+    scan folds them (the sum rounds the same way).
+
+    The JAX package folds one seed at a time into an (h, w) carry; here a
+    chunk of seeds is one broadcast min over a (chunk, h, w) block of
+    ``(row - r_s)^2 + (col - c_s)^2`` (the same f32 terms in the same
+    order; a min is exact in any order), with the row and column terms of
+    every seed computed once.  At gs = 1000 a chunk is 16 seeds (64 MB),
+    so an event costs three launches per 16 seeds instead of three per
+    seed."""
+    dev = confidences.device
+    rows = torch.arange(h, device=dev, dtype=torch.float32)
+    cols = torch.arange(w, device=dev, dtype=torch.float32)
+    chunk = max(1, chunk_bytes // (4 * h * w))
+    out = torch.zeros((h, w), device=dev)
+    for i, seeds in enumerate(tracks):
+        dr = (rows[None, :] - seeds[:, 0:1]) ** 2  # (T, h)
+        dc = (cols[None, :] - seeds[:, 1:2]) ** 2  # (T, w)
+        d2min = None
+        for c0 in range(0, seeds.shape[0], chunk):
+            d2 = torch.amin(dr[c0:c0 + chunk, :, None]
+                            + dc[c0:c0 + chunk, None, :], dim=0)
+            d2min = d2 if d2min is None else torch.minimum(d2min, d2)
+        dist = torch.sqrt(d2min)
+        conf = confidences[i]
+        if combine == "max":
+            layer = torch.clamp(conf - dist * decay_rate, 0.0, 1.0)
+            out = torch.maximum(out, layer)
+        else:
+            layer = torch.clamp(conf - conf * dist * decay_rate, min=0.0)
+            out = out + layer
+    if normalize:
+        lo, hi = torch.aminmax(out)
+        rng = hi - lo
+        out = (out - lo) / torch.where(rng > 0, rng, torch.ones_like(rng))
+    return out
+
+
+def decayed_point_heatmap_2d(shape, points_rc, confidences,
+                             decay_rate: float, combine: str = "max",
+                             normalize: bool = False,
+                             as_device: bool = False,
+                             device: Union[str, torch.device] = "cuda"):
+    """Stack per-event radial-decay maps (reference AVLMap.index_area_2d,
+    avlmaps/map/avlmap.py:78-108, and index_sound_2d, :110-144) on
+    ``device`` (default ``"cuda"``; raises without a card).
+
+    ``points_rc``: per-event seed tracks, either a flat (E, 2) array (one
+    seed per event, the area case) or a list of (T_i, 2) arrays (pose
+    tracks, the sound case).  For each event with confidence c the map is
+    ``clip(c - dist * decay, 0, 1)`` (``combine="max"``, area) or
+    ``max(c - c * dist * decay, 0)`` (``"sum"``, sound), with ``dist`` the
+    min radial distance over the event's seeds: each seed map has one
+    nonzero pixel, whose EDT is exactly that distance.  ``normalize``
+    min-max-normalises on the device.  Returns (h, w) f32, host numpy or
+    the tensor with ``as_device=True``.
+
+    The JAX package pads events and seeds to powers of two with far seeds
+    and zero confidences so that its compiled program is reused; a padded
+    event adds a zero layer and a far seed never wins the min, so the
+    result is the same without the padding, and nothing here pads."""
+    h, w = int(shape[0]), int(shape[1])
+    dev = resolve_device(device)
+    tracks = []
+    for p in points_rc:
+        t = np.atleast_2d(np.asarray(p, np.float32))
+        if t.shape[0] == 0:  # all-padding in the JAX package
+            t = np.full((1, 2), _FAR, np.float32)
+        tracks.append(t)
+    if not tracks:
+        out = torch.zeros((h, w), device=dev)
+    else:
+        # one upload for every track; the split makes views
+        seeds = to_device(np.concatenate(tracks), dev)
+        tracks = torch.split(seeds, [t.shape[0] for t in tracks])
+        conf = to_device(np.asarray(confidences, np.float32), dev)
+        out = _stacked_decay_scan(tracks, conf, h, w, float(decay_rate),
+                                  combine, normalize)
+    return out if as_device else out.cpu().numpy()

@@ -198,6 +198,17 @@ def open_matching(data_dir, rgb_paths: Sequence, depth_paths: Sequence = (),
     return None
 
 
+def rgb_reader(data_dir, rgb_paths: Sequence):
+    """``callable(i) -> (H, W, 3) uint8 RGB``: read from the memmap when a
+    matching ``<data_dir>/scene.avpack`` exists, else a per-frame PNG
+    decode, so the one-pass frame encoders (AreaMap) share the pack the
+    VLMap builder reads."""
+    scene = open_matching(data_dir, rgb_paths)
+    if scene is not None:
+        return lambda i: np.asarray(scene.rgb[i])
+    return lambda i: load_rgb(rgb_paths[i])
+
+
 class PackedLoader(_QueueLoader):
     """PrefetchLoader twin fed from a PackedScene.
 

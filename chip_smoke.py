@@ -59,7 +59,29 @@
    8-crop ViT-L taps with ``MLP_FUSE=False`` and ``attn_impl="flash"``
    against the default route; a medium f32 LSeg on the card against the
    CPU.
-6. Prints the kernel table as one JSON line, then the card line, and last
+6. Slice 7, the area and sound queries, on the slice-1 scene: writes its
+   ``audio_video/`` (20 sequences of 12 s at 44.1 kHz, 3 noisy tones of
+   1.5-2.6 s between exact silences each, 25 fps habitat pose walks);
+   the full-width AudioCLIP (ESResNeXt-50 32x4d, n_fft 2048, hop 561,
+   win 1654, embed 1024; seeded weights) on one batch of 10 of the sound
+   map's 220,500-sample clips against the port's CPU path (cosine >=
+   0.9999 and max |d| <= 1e-3 after L2 normalisation, with TF32 switched
+   on outside and asserted off inside the forward), and the area map's
+   CLIP ViT-L/14 on two frames by the same rule; builds the area map
+   (``AreaMap.create_map``) and the sound map
+   (``SoundMap.create_sound_map``, one event a tone), then
+   ``AVLMap.load_map``; ``index_area_2d`` / ``index_sound_2d`` at gs =
+   1000 on the card against the same calls on CPU tensors (atol 1e-5),
+   the u8 delivery against the host quantisation, the (N,) lifts, and
+   the object query (K8 with ``init_categories`` on the category that
+   labels the most voxels, K7 without on 'chair') x area x sound (both
+   at decay 0.005 a cell, so the product is positive) fused on the card
+   against the host argmax.  K7 and K8 counts
+   are zeroed before the phase's path and must read >= 1 after it.
+   Prints the events found, the audio tower's clips/s at batch 10 and
+   its device ms a batch, the area map's frames/s, each 2D query's
+   device ms and kernel launches, and the phase's wall seconds.
+7. Prints the kernel table as one JSON line, then the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no result line.
@@ -1774,6 +1796,288 @@ def object_query_run(enc, scene: Path):
         raise AssertionError("object query on the built map failed")
 
 
+# slice 7's sound scene: 20 sequences (considered_seq_num_per_scene) of
+# 12 s at 44.1 kHz, each with 3 bursts of 1.5-2.6 s at least 1.2 s apart
+SOUND_SEQS = 20
+SOUND_SR = 44100
+SOUND_SECONDS = 12
+SOUND_FPS = 25
+AUDIO_BATCH = 10
+
+
+def write_sound_scene(scene: Path, seed: int = 0) -> int:
+    """``<scene>/audio_video/<seq>/audio.wav`` + ``poses.txt`` for every
+    sequence: noisy tones between exact silences (the sound map splits at
+    1 s of silence), and a 25 fps habitat pose walk within 3 m of the
+    scene's start; returns the bursts written."""
+    from avlmaps_torch.utils.audio import write_wav
+
+    rng = np.random.default_rng(seed)
+    n = SOUND_SECONDS * SOUND_SR
+    bursts = 0
+    for q in range(SOUND_SEQS):
+        seq = scene / "audio_video" / f"{q:06d}"
+        seq.mkdir(parents=True)
+        audio = np.zeros(n, np.float32)
+        t0 = 0.5
+        for _ in range(3):
+            d = rng.uniform(1.5, 2.6)
+            i0, i1 = int(t0 * SOUND_SR), int((t0 + d) * SOUND_SR)
+            t = np.arange(i1 - i0) / SOUND_SR
+            audio[i0:i1] = (0.3 * np.sin(2 * np.pi * rng.uniform(200, 4000)
+                                         * t)
+                            + 0.1 * rng.normal(size=t.size))
+            bursts += 1
+            t0 += d + rng.uniform(1.2, 1.8)
+        write_wav(seq / "audio.wav", np.clip(audio, -1, 1), SOUND_SR)
+        steps = SOUND_SECONDS * SOUND_FPS
+        xz = np.cumsum(rng.normal(0, 0.04, (steps, 2)), 0)
+        xz = np.clip(xz + rng.uniform(-1.5, 1.5, 2), -3.0, 3.0)
+        yaw = np.cumsum(rng.normal(0, 0.02, steps))
+        np.savetxt(seq / "poses.txt", np.stack(
+            [xz[:, 0], np.zeros(steps), xz[:, 1], np.zeros(steps),
+             np.sin(yaw / 2), np.zeros(steps), np.cos(yaw / 2)], 1))
+    return bursts
+
+
+def _tf32_probe(module):
+    """Records (cuDNN TF32, cuBLAS TF32) each time ``module`` runs."""
+    import torch
+
+    seen = []
+    handle = module.register_forward_pre_hook(lambda *_: seen.append((
+        torch.backends.cudnn.allow_tf32,
+        torch.backends.cuda.matmul.allow_tf32)))
+    return seen, handle
+
+
+def _cosine_rows(a, b) -> np.ndarray:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                             * np.linalg.norm(b, axis=1))
+
+
+def _card_vs_cpu(name: str, got, want) -> dict:
+    """The embedding rule of slice 7: cosine >= 0.9999 and max |d| <= 1e-3
+    after L2 normalisation, row by row."""
+    cos = _cosine_rows(got, want)
+    g = got / np.linalg.norm(got, axis=1, keepdims=True)
+    w = want / np.linalg.norm(want, axis=1, keepdims=True)
+    err = float(np.abs(g - w).max())
+    print(f"  {name}: {len(got)} rows, card vs CPU cosine min "
+          f"{cos.min():.7f}, max |d| {err:.2e} (L2-normalised)")
+    return {f"{name}: cosine >= 0.9999 and max |d| <= 1e-3":
+            bool(cos.min() >= 0.9999 and err <= 1e-3)}
+
+
+def profile_call(fn):
+    """(device ms, kernel launches, copies) of one call of ``fn`` from
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    gpu = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in gpu if e.key.startswith(("Memcpy", "Memset"))]
+    ms = sum(e.self_device_time_total for e in gpu) / 1e3
+    return (ms, sum(e.count for e in gpu) - sum(e.count for e in copies),
+            sum(e.count for e in copies))
+
+
+def sound_area_run(enc, scene: Path, rows):
+    """Slice 7: the area and sound maps on the scene slice 1 built, loaded
+    through ``AVLMap.load_map``, and the area, sound and multimodal
+    queries at gs = 1000.  ``enc`` is slice 2's ViT-B/32 encoder (the
+    VLMap's); ``rows`` are K7's and K8's kernel-table rows, whose counts
+    this phase reads for itself."""
+    import torch
+
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.area_map import AreaMap
+    from avlmaps_torch.map.avlmap import AVLMap
+    from avlmaps_torch.map.sound_map import SoundMap
+    from avlmaps_torch.models.audioclip import AudioClipEncoder
+    from avlmaps_torch.models.clip import ClipEncoder
+    from avlmaps_torch.ops import delivery as dlv
+    from avlmaps_torch.utils import audio as au
+
+    t_phase = time.perf_counter()
+    cfg = load_config()
+    cc = cfg.sound_data_collect_params
+    assert cc.considered_seq_num_per_scene == SOUND_SEQS
+    bursts = write_sound_scene(scene)
+    checks = {}
+
+    # AudioCLIP at full width, one batch of 10 of the sound map's own clips
+    t0 = time.perf_counter()
+    aenc = AudioClipEncoder(seed=0, device="cuda")
+    acfg = aenc.cfg.audio
+    acpu = AudioClipEncoder(aenc.cfg, device="cpu", params={
+        k: v.cpu() for k, v in aenc.model.state_dict().items()})
+    print(f"  AudioCLIP: ESResNeXt {acfg.layers} x{acfg.groups}x"
+          f"{acfg.width_per_group}, n_fft {acfg.n_fft}, hop "
+          f"{acfg.hop_length}, win {acfg.win_length}, embed "
+          f"{aenc.cfg.embed_dim}; set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+    clips = []
+    for seq in sorted((scene / "audio_video").iterdir())[:4]:
+        audio, sr = au.read_wav(seq / "audio.wav", cc.sample_rate)
+        _, tracks = au.segment_audio_with_silence(
+            audio, cc.silence_duration_s, cc.silence_threshold, sr)
+        clips += [au.get_five_second_context(t * 32768.0, 2.5, sr)
+                  for t in tracks]
+    batch = np.stack([aenc.prepare_audio(c) for c in clips[:AUDIO_BATCH]])
+    spec = aenc.model.audio.spectrogram(torch.from_numpy(batch[:1]).cuda())
+    print(f"  one batch: {tuple(batch.shape)} samples -> spectrogram "
+          f"{(AUDIO_BATCH,) + tuple(spec.shape[1:])}")
+    seen, hooks = [], []
+    for m in (aenc.model.audio.conv1, aenc.model.audio.fc):
+        s, h = _tf32_probe(m)
+        seen.append(s)
+        hooks.append(h)
+    # TF32 on outside, as a user of the port has it by default: the
+    # towers must switch it off for themselves
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = aenc.encode_audio_device(batch).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for h in hooks:
+            h.remove()
+    flags = [f for s in seen for f in s]
+    print(f"  TF32 (cuDNN, cuBLAS) inside the audio tower: {set(flags)}")
+    checks["TF32 off inside the audio forward, on outside"] = bool(
+        flags) and not any(a or b for a, b in flags)
+    checks.update(_card_vs_cpu("audio embeddings, 10 full clips", card,
+                               acpu.encode_audio_device(batch).numpy()))
+    del acpu
+    xb = torch.from_numpy(batch).cuda()
+    ms = time_ms(lambda: aenc.model.encode_audio(xb), iters=5)
+    dev = device_ms(lambda: aenc.model.encode_audio(xb), iters=3)
+    print(f"  audio tower, batch {AUDIO_BATCH}: {ms:.2f} ms a batch (CUDA "
+          f"events), {AUDIO_BATCH * 1e3 / ms:.1f} clips/s; device "
+          f"{dev:.2f} ms a batch (profiler)")
+
+    # the area map's CLIP ViT-L/14 at 224
+    t0 = time.perf_counter()
+    venc = ClipEncoder("ViT-L/14", seed=0, device="cuda")
+    vcpu = ClipEncoder("ViT-L/14", device="cpu", params={
+        k: v.cpu() for k, v in venc.model.state_dict().items()})
+    print(f"  CLIP ViT-L/14 at {venc.cfg.image_size}: set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+    from avlmaps_torch.pipeline.loader import load_rgb
+
+    frames = [load_rgb(p) for p in sorted((scene / "rgb").glob("*.png"))[:2]]
+    checks.update(_card_vs_cpu("ViT-L/14 image features, 2 frames",
+                               venc.get_imgs_feats_batch(frames),
+                               vcpu.get_imgs_feats_batch(frames)))
+    del vcpu
+
+    # the two maps, then AVLMap.load_map on the scene
+    area = AreaMap(str(scene), clip_encoder=venc, device="cuda")
+    t0 = time.perf_counter()
+    area.create_map(scene)
+    n_frames = len(area.rgb_paths)
+    t_area = time.perf_counter() - t0
+    sound = SoundMap(str(scene), cfg.sound_config, cc,
+                     audioclip_encoder=aenc, device="cuda")
+    t0 = time.perf_counter()
+    db = sound.create_sound_map(str(scene))
+    t_sound = time.perf_counter() - t0
+    poses = sum(len(e["locations"]) for e in db.values())
+    print(f"  area map: {n_frames} frames in {t_area:.2f} s, "
+          f"{n_frames / t_area:.1f} frames/s; sound map: {len(db)} events "
+          f"found of {bursts} bursts in {SOUND_SEQS} sequences, "
+          f"{poses} poses, in {t_sound:.2f} s")
+    checks["sound map: one event a burst"] = len(db) == bursts
+
+    for r in rows:
+        r["fn"].launches = 0
+    avl = AVLMap(cfg, clip_encoder=enc, area_clip_encoder=venc,
+                 audioclip_encoder=aenc, device="cuda")
+    avl.load_map(scene)
+    vm = avl.vlmap
+    n, gs = vm.grid_pos.shape[0], vm.occupied_ids.shape[0]
+    cpu_avl = copy.copy(avl)
+    cpu_avl.vlmap = copy.copy(vm)
+    cpu_avl.vlmap.device = torch.device("cpu")
+    for name, query, word in (("area", "index_area_2d", "kitchen"),
+                              ("sound", "index_sound_2d",
+                               "glass_breaking")):
+        fn = getattr(avl, query)
+        f32 = fn(word)
+        heat = fn(word, delivery="device")
+        u8 = fn(word, delivery="u8")
+        on_cpu = getattr(cpu_avl, query)(word)
+        err = float(np.abs(f32 - on_cpu).max())
+        host_u8 = np.round(np.clip(f32, 0, 1) * np.float32(255)) \
+            / np.float32(255)
+        ms, launches, copies = profile_call(
+            lambda: fn(word, delivery="device"))
+        print(f"  {query}('{word}') at {gs}x{gs}: max |card - CPU| "
+              f"{err:.2e}; one call: {ms:.3f} ms of device work, "
+              f"{launches} kernel launches, {copies} copies (profiler)")
+        checks[f"{query}: (gs, gs) on the card, == CPU (atol 1e-5)"] = bool(
+            isinstance(heat, torch.Tensor) and heat.is_cuda
+            and f32.shape == (gs, gs) and err <= 1e-5
+            and f32.max() == 1.0)
+        checks[f"{query}: u8 == host quantisation"] = np.array_equal(
+            u8, host_u8)
+        lifted = getattr(avl, query[:-3])(word)
+        checks[f"{query[:-3]}: (N,) finite"] = bool(
+            lifted.shape == (n,) and np.isfinite(lifted).all())
+
+    # the multimodal goal: object (K8 with the categories, K7 without) x
+    # area x sound, fused on the card.  The synthetic walk sees its voxels
+    # 1-4 m ahead, beyond the area heat's default reach (10 cells at decay
+    # 0.1 a cell) and at the edge of the sound heat's (100 cells), so both
+    # decay at 0.005 a cell here: the product must be positive somewhere,
+    # or the goal check would hold trivially
+    area3 = avl.index_area("kitchen", decay_rate=0.005)
+    sound3 = avl.index_sound("glass_breaking", decay_rate=0.005)
+    # the seeded weights label no voxel 'chair' among the 39 categories
+    # (slice 2 prints the count), so the K8 query names the category that
+    # labels the most voxels; K7 against 'other' finds chairs
+    avl.index_object("chair", init_categories=MP3D, delivery="device")
+    cats = MP3D[1:-1]
+    labels = np.argmax(vm.scores_mat, axis=1)
+    top = cats[int(np.bincount(labels, minlength=len(cats) + 1)[
+        :len(cats)].argmax())]
+    obj8 = avl.index_object(top, init_categories=MP3D, decay_rate=0.01,
+                            delivery="device")
+    obj7 = avl.index_object("chair", decay_rate=0.01, delivery="device")
+    print(f"  K8 query: '{top}', {int((labels == cats.index(top)).sum())} "
+          f"voxels; K7 query: 'chair', {int((obj7 == 1).sum())} voxels")
+    for label, obj in (("K8", obj8), ("K7", obj7)):
+        pos, val = dlv.fetch_np(*dlv.fused_goal_pick([obj, area3, sound3],
+                                                     vm.grid_pos))
+        fused = obj.cpu().numpy() * area3 * sound3
+        print(f"  object ({label}) x area x sound: goal "
+              f"{np.asarray(pos).tolist()}, heat {float(val):.4f}")
+        checks[f"object ({label}) x area x sound goal == host argmax, "
+               "heat > 0"] = bool(
+            np.array_equal(pos, vm.grid_pos[int(np.argmax(fused))])
+            and abs(float(val) - float(fused.max())) <= 1e-6
+            and float(val) > 0)
+    counts = {r["name"]: r["fn"].launches for r in rows}
+    for r in rows:
+        r["slice7_launches"] = r["fn"].launches
+    print(f"  slice 7 launches: {counts}")
+    checks["K7 and K8 launched in this phase"] = min(counts.values()) >= 1
+    print(f"  slice 7 phase: {time.perf_counter() - t_phase:.1f} s wall")
+    for name, ok in checks.items():
+        print(f"  {'pass' if ok else 'FAIL'}: {name}")
+    if not all(checks.values()):
+        raise AssertionError("slice 7: the sound and area path failed")
+
+
 def ptxas_gate(logs) -> None:
     """Prints each kernel's registers and spill stores from ptxas, and
     ptxas's warnings; fails on a kernel that spills, or on warning C7508
@@ -1882,6 +2186,10 @@ def main() -> int:
         object_query_run(enc, scene)
         for r in rows[4:]:
             r["launches"] = r["fn"].launches
+        print("slice 7: area and sound maps on the slice-1 scene, "
+              "AVLMap.load_map, area / sound / multimodal queries at "
+              "gs=1000:")
+        sound_area_run(enc, scene, rows[4:])
     launches = {r["name"]: r["launches"] for r in rows[4:]}
     print(f"  slice 2 launches: {launches}")
     print(f"position gate: {GATE.n_builds} builds, {GATE.n_steps} fusion "
@@ -1892,6 +2200,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = {"device_ms": "dev", "path": "path",
+             "slice7_launches": "slice7_launches",
              "library_device_ms": "library_dev", "runs": "runs",
              "real_step": "real_step"}
     table = [{**{k: r[k] for k in keys},
