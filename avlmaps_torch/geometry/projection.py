@@ -1,10 +1,12 @@
-"""Camera intrinsics, depth backprojection and point transforms on tensors.
+"""Camera intrinsics, depth backprojection, point transforms and projection.
 
 Counterpart of ``avlmaps_tpu/geometry/projection.py`` (reference semantics:
 avlmaps/utils/mapping_utils.py:226-251, 305-315, 591-622).  Point clouds
-are (..., 3) row vectors.  The 3x3 contractions are written out as three
-f32 multiply-adds rather than a matmul, so they stay exact f32 under any
-TF32 setting and sum in one fixed order on every device.
+are (..., 3) row vectors; the intrinsics and ``project_points`` are numpy
+on the host, as the JAX package's are.  The 3x3 contractions on tensors
+are written out as three f32 multiply-adds rather than a matmul, so they
+stay exact f32 under any TF32 setting and sum in one fixed order on every
+device.
 """
 
 from __future__ import annotations
@@ -21,6 +23,29 @@ def get_sim_cam_mat(h: int, w: int) -> np.ndarray:
     cam_mat[0, 2] = w / 2.0
     cam_mat[1, 2] = h / 2.0
     return cam_mat
+
+
+def get_sim_cam_mat_with_fov(h: int, w: int, fov: float) -> np.ndarray:
+    """Pinhole intrinsics from a horizontal FOV in degrees
+    (reference mapping_utils.py:617-622)."""
+    cam_mat = np.eye(3)
+    cam_mat[0, 0] = cam_mat[1, 1] = w / (2.0 * np.tan(np.deg2rad(fov / 2)))
+    cam_mat[0, 2] = w / 2.0
+    cam_mat[1, 2] = h / 2.0
+    return cam_mat
+
+
+def project_points(cam_mat: np.ndarray, points: np.ndarray):
+    """Project (N, 3) camera-frame points to integer pixel coords on the
+    host: perspective divide, then ``int(u - 0.5)``, which truncates
+    toward zero (not ``floor``), as the reference's project_points does
+    (mapping_utils.py:599-614).  Returns (x (N,), y (N,), z (N,))."""
+    uvw = points @ cam_mat.T
+    z = uvw[:, 2]
+    uv = uvw[:, :2] / uvw[:, 2:3]
+    x = (uv[:, 0] - 0.5).astype(int)
+    y = (uv[:, 1] - 0.5).astype(int)
+    return x, y, z
 
 
 def apply_mat3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -2,11 +2,9 @@
 
 Counterpart of ``avlmaps_tpu/map/avlmap.py`` (reference
 avlmaps/map/avlmap.py): open-vocabulary object queries over the voxel
-VLMap, area queries over the sparse CLIP map and sound queries over the
-audio event database, each returned as a heatmap in [0, 1] for fusion.
-The visual map (image queries by visual localisation) is not ported yet:
-``create_map`` and ``load_map`` skip it and ``index_image`` raises
-``NotImplementedError`` naming its ROADMAP.md item.
+VLMap, area queries over the sparse CLIP map, sound queries over the
+audio event database and image queries by visual localisation, each
+returned as a heatmap in [0, 1] for fusion.
 """
 
 from __future__ import annotations
@@ -20,22 +18,18 @@ import torch
 from avlmaps_torch.config import AVLMapsConfig
 from avlmaps_torch.map.area_map import AreaMap
 from avlmaps_torch.map.sound_map import SoundMap
+from avlmaps_torch.map.visual_map import VisualMap
 from avlmaps_torch.map.vlmap import VLMap
 from avlmaps_torch.ops.heatmap import (decayed_point_heatmap_2d,
                                        heatmap_from_mask_3d)
 from avlmaps_torch.ops.pooling import lift_2d_to_3d
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to avlmaps_torch yet (ROADMAP.md, Queue 1 "
-        f"{item})")
+from avlmaps_torch.utils.device import to_device
 
 
 class AVLMap:
-    """The object, area and sound queries on ``device`` (default
+    """The object, area, sound and image queries on ``device`` (default
     ``"cuda"``; raises without a card): the encoders it makes, the
-    scoring kernels and the heat run there."""
+    scoring kernels, the matchers and the heat run there."""
 
     def __init__(self, config: AVLMapsConfig, data_dir: str = "",
                  clip_encoder=None, area_clip_encoder=None,
@@ -74,28 +68,32 @@ class AVLMap:
                                   device=device)
         self.area_map = AreaMap(data_dir, clip_encoder=area_clip_encoder,
                                 device=device)
-        self.visual_map = None  # ROADMAP.md, Queue 1 item 6
+        self.visual_map = VisualMap(
+            config.map_config, data_dir, clip_encoder=area_clip_encoder,
+            superpoint_ckpt=getattr(config.map_config, "superpoint_ckpt",
+                                    "") or None, device=device)
         self.dataloader = None
 
     # -- lifecycle (reference avlmap.py:38-56) ----------------------------
 
     def create_map(self, data_dir: Union[Path, str]) -> bool:
-        """Build the VLMap, the area map and the sound map of a scene.  The
-        visual map is skipped until it is ported (ROADMAP.md, Queue 1
-        item 6)."""
+        """Build the VLMap, the area map, the visual map's descriptor cache
+        and the sound map of a scene."""
         self.vlmap.create_map(data_dir)
         self.area_map.create_map(data_dir)
+        self.visual_map.create_and_load_map(data_dir)
         self.sound_map.create_sound_map(data_dir)
         return True
 
     def load_map(self, data_dir: Union[Path, str]) -> bool:
-        """Load the VLMap, the area map and the sound map and build the
-        pose converter; the visual map is skipped (Queue 1 item 6)."""
+        """Load the four maps (the visual map computes its descriptor cache
+        if none fits its encoder) and build the pose converter."""
         from avlmaps_torch.dataloader.habitat_dataloader import \
             VLMapsDataloaderHabitat
 
         self.vlmap.load_map(data_dir)
         self.area_map.load_map(data_dir)
+        self.visual_map.create_and_load_map(data_dir)
         self.sound_map.load_sound_map(data_dir)
         self.dataloader = VLMapsDataloaderHabitat(
             data_dir, self.config.map_config, self.vlmap)
@@ -232,8 +230,33 @@ class AVLMap:
 
     def index_image(self, image: np.ndarray,
                     query_cam_intrinsics: Optional[np.ndarray] = None,
-                    decay_rate: float = 0.01):
-        raise _not_ported("index_image (the visual map)", "item 6")
+                    decay_rate: float = 0.01, delivery: str = "f32"):
+        """Per-voxel heat around the query image's localised pose:
+        ``clip(1 - decay_rate * d, 0, 1)`` with ``d`` the 2D grid distance
+        from the pose's map cell (reference avlmap.py:146-163).  The pose
+        comes from the visual map on the host; the heat runs on the
+        VLMap's device in f32, the same operations as the host formula.
+        ``delivery``: "f32" (default, host (N,) array, as the JAX package
+        returns) or "device": the port's addition, as in the other
+        ``index_*`` methods, which leaves the (N,) f32 tensor on the device
+        for cross-modal fusion there (``ops.delivery.fused_goal_pick``)
+        without a round trip through the host."""
+        if delivery not in ("f32", "device"):
+            raise ValueError(f"unknown delivery format {delivery!r}")
+        _, query_base_tf = self.visual_map.localize_image(
+            image, query_cam_intrinsic_mat=query_cam_intrinsics)
+        self.dataloader.from_habitat_tf(query_base_tf)
+        row, col, _ = self.dataloader.to_full_map_pose()
+        vm = self.vlmap
+        d = to_device(vm.grid_pos[:, :2], vm.device, torch.float32) \
+            - torch.tensor([row, col], dtype=torch.float32, device=vm.device)
+        # the root of the f32 sum in f64, rounded once to f32: the correctly
+        # rounded f32 root on every device, as numpy's (torch's vectorised
+        # f32 sqrt on the CPU is not correctly rounded)
+        dists = torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]).double()
+                           ).float()
+        heat = torch.clamp(1.0 - decay_rate * dists, 0.0, 1.0)
+        return heat if delivery == "device" else heat.cpu().numpy()
 
     # -- visualization helper (reference avlmap.py:57-66) -----------------
 

@@ -10,13 +10,12 @@ is the port's CLIP :class:`TextEncoder`.
 The audio and image towers are f32 convolution stacks; cuDNN computes f32
 convolutions in TF32 unless told otherwise (``torch.backends.cudnn.
 allow_tf32`` is True out of the box), which the log-power front end
-would magnify.  Every forward here runs under :func:`full_f32`, which
-switches TF32 off for cuDNN and cuBLAS for its duration only.
+would magnify.  Every forward here runs under ``utils.device.full_f32``,
+which switches TF32 off for cuDNN and cuBLAS for its duration only.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional, Sequence, Union
 
@@ -30,24 +29,7 @@ from avlmaps_torch.models.audioclip.modified_resnet import (
     ModifiedResNet, ModifiedResNetConfig)
 from avlmaps_torch.models.clip.model import ClipConfig, TextEncoder
 from avlmaps_torch.models.clip.tokenizer import default_tokenizer
-from avlmaps_torch.utils.device import resolve_device, to_device
-
-
-@contextlib.contextmanager
-def full_f32():
-    """f32 convolutions and matmuls without TF32 inside the block; the
-    previous settings come back on exit."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(
-                enabled=torch.backends.cudnn.enabled,
-                benchmark=torch.backends.cudnn.benchmark,
-                deterministic=torch.backends.cudnn.deterministic,
-                allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+from avlmaps_torch.utils.device import full_f32, resolve_device, to_device
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,11 +7,13 @@ from avlmaps_torch.models.lseg.model import (LOGIT_SCALE, LSegConfig,
 from avlmaps_torch.models.lseg.port import init_params, params_from_flax
 from avlmaps_torch.models.lseg.vit import DenseViT, DenseViTConfig, ViTBlock
 from avlmaps_torch.models.lseg.window import (
-    bilinear_patch_sample, features_at_points, normalize_image, plan_windows,
+    DEFAULT_SCALES, bilinear_patch_sample, features_at_points,
+    multi_scale_features, normalize_image, plan_windows,
     sliding_window_features, whole_canvas_features_at_points)
 
-__all__ = ["DenseViT", "DenseViTConfig", "LOGIT_SCALE", "LSegConfig",
-           "LSegNet", "ViTBlock", "bilinear_patch_sample",
+__all__ = ["DEFAULT_SCALES", "DenseViT", "DenseViTConfig", "LOGIT_SCALE",
+           "LSegConfig", "LSegNet", "ViTBlock", "bilinear_patch_sample",
            "cast_params_for_inference", "features_at_points", "init_params",
-           "normalize_image", "params_from_flax", "plan_windows",
-           "sliding_window_features", "whole_canvas_features_at_points"]
+           "multi_scale_features", "normalize_image", "params_from_flax",
+           "plan_windows", "sliding_window_features",
+           "whole_canvas_features_at_points"]

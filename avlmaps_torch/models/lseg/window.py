@@ -121,6 +121,33 @@ def sliding_window_features(apply_fn: Callable, images: torch.Tensor,
     return out[:, :height, :width]
 
 
+DEFAULT_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
+
+
+def multi_scale_features(apply_fn: Callable, images: torch.Tensor,
+                         base_size: int = 520, crop_size: int = 480,
+                         scales=DEFAULT_SCALES,
+                         flip: bool = True) -> torch.Tensor:
+    """Multi-scale (+ flip) evaluation, the reference's quality knob
+    (LSeg_MultiEvalModule.forward, additional_utils/models.py:55-133).
+
+    Per scale: one :func:`sliding_window_features` at long side
+    ``ceil(base_size * scale)`` (a single padded crop when the scaled
+    image fits one window), resized back to the input size with
+    align-corners bilinear; the scales are summed in order (argmax-
+    invariant, as in the reference).  Returns (B, H, W, D) f32."""
+    _, h, w, _ = images.shape
+    total = None
+    for scale in scales:
+        out = sliding_window_features(apply_fn, images,
+                                      base_size=int(math.ceil(base_size
+                                                              * scale)),
+                                      crop_size=crop_size, flip=flip)
+        out = resize_bilinear_align_corners(out, h, w)
+        total = out if total is None else total + out
+    return total
+
+
 def bilinear_patch_sample(fmap: torch.Tensor, sx: torch.Tensor,
                           sy: torch.Tensor) -> torch.Tensor:
     """Edge-safe bilinear sample of (B, H, W, D) maps at f32 coords (B, N),

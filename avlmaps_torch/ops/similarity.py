@@ -172,6 +172,14 @@ score_features.launches = 0
 score_argmax.launches = 0
 
 
+def score_features_hbm(map_feats: torch.Tensor, text_feats: torch.Tensor,
+                       **kw) -> torch.Tensor:
+    """Alias of :func:`score_features` (the JAX package's name for it:
+    the kernel streams (N, D) rows from device memory tile by tile, so any
+    N works).  Launches count on ``score_features.launches``."""
+    return score_features(map_feats, text_feats, **kw)
+
+
 def topk_categories(scores: torch.Tensor) -> torch.Tensor:
     """Per-voxel argmax category (reference vlmap.py:123-125)."""
     return torch.argmax(scores, dim=-1)

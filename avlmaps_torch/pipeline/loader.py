@@ -177,3 +177,42 @@ class PrefetchLoader(_QueueLoader):
             depth=np.stack([f[1] for f in frames]),
             pose_tf=np.stack([f[2] for f in frames]),
         )
+
+
+def load_pose(path):
+    """Single-line ``px py pz qx qy qz qw`` pose file -> (pos (3, 1), rot
+    (3, 3)) (reference mapping_utils.load_pose, :75-85)."""
+    from avlmaps_torch.geometry.transforms import quat_xyzw_to_matrix
+
+    with open(path) as f:
+        row = [float(x) for x in f.readline().split()]
+    pos = np.asarray(row[:3], float).reshape(3, 1)
+    return pos, quat_xyzw_to_matrix(np.asarray(row[3:], float))
+
+
+def load_calib(path) -> np.ndarray:
+    """ROS-style camera-calibration YAML -> 3x3 f32 intrinsics (reference
+    mapping_utils.load_calib, :64-72: skips the first two header lines)."""
+    import yaml
+
+    with open(path) as f:
+        f.readline()
+        f.readline()
+        data = yaml.safe_load(f)
+    arr = data["camera_matrix"]["data"]
+    return np.asarray([float(x) for x in arr], np.float32).reshape(3, 3)
+
+
+def load_obj2cls_dict(path) -> dict:
+    """``obj_id: cls_id, cls_name`` lines -> {obj_id: (cls_id, name)}
+    (reference mapping_utils.load_obj2cls_dict, :625-635): the semantic
+    object -> class remap."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            row = line.split(":")
+            if len(row) < 2:
+                continue
+            cls_id, cls_name = row[1].split(",")[:2]
+            out[int(row[0])] = (int(cls_id.strip()), cls_name.strip())
+    return out

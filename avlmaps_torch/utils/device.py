@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import numpy as np
@@ -32,3 +33,24 @@ def to_device(a, device: torch.device, dtype=None,
         if non_blocking and device.type == "cuda":
             a = a.pin_memory()
     return a.to(device=device, dtype=dtype, non_blocking=non_blocking)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 convolutions and matmuls without TF32 inside the block; the
+    previous settings come back on exit.  cuDNN computes f32 convolutions
+    in TF32 unless told otherwise (``torch.backends.cudnn.allow_tf32`` is
+    True out of the box), and a user may switch cuBLAS's on: every f32
+    model of the port whose output decides by argmax or feeds a log runs
+    its forward under this."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled,
+                benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -81,7 +81,34 @@
    Prints the events found, the audio tower's clips/s at batch 10 and
    its device ms a batch, the area map's frames/s, each 2D query's
    device ms and kernel launches, and the phase's wall seconds.
-7. Prints the kernel table as one JSON line, then the card line, and last
+7. Slice 8, the image query and the other models, on the slice-1 scene
+   (seeded weights at full width): SuperPoint on one 720x1080 frame
+   against the CPU (keypoint sets shared >= 99%, scores within 1e-6 and
+   descriptors within 1e-4 at shared keypoints; ms an image); SuperGlue
+   (9 layer pairs, 100 Sinkhorn iterations) on two frames' 1024 + 1024
+   keypoints against the CPU (Z within 1e-3, decisions agreeing on >= 99%
+   of the rows; ms, device ms and launches a match); NetVLAD against the
+   CPU at 240x320 (cosine >= 0.9999) and the scene's 32 frames at
+   720x1080 (frames/s); ``VisualMap.create_and_load_map`` with NetVLAD
+   and with the CLIP ViT-B/32 image tower on 16 mosaic frames, where a
+   mapping frame must retrieve itself; ``refine_pose`` on the textured
+   240x320 canvas with the query moved 25 cm (full-width SuperPoint +
+   mutual-NN, on the CPU and on the card: within 6 cm);
+   ``AVLMap.load_map`` with the visual map, ``index_image`` equal to the
+   host formula, and object (K7; K8 with the categories) x image fused on
+   the card against the host argmax (K7 and K8 zeroed first, >= 1 after);
+   ``multi_scale_features`` (6 scales with flip) on one 720x1080 frame:
+   the medium f32 LSeg against the CPU within 5e-3 and the ViT-L/16 bf16
+   LSeg on the card (K1-K3 zeroed first, 24 a forward after; crops and
+   ms a frame), each of its forwards again through the fused route and
+   the plain route (no port kernel) on the same weights (per-pixel cosine
+   >= 0.999), and K1, K3 and K2 at its crop batches that the batch-8 rows
+   do not cover (2, 4 and 12 crops: M = 1802, 3604, 10812) against their
+   plain versions, with times, bounds and library times; Wav2CLIP on 10 of the sound map's clips against the CPU
+   (cosine >= 0.9999).  Every f32 model runs with TF32 switched on
+   outside and asserted off inside its forward.  Prints whether OpenCV
+   is installed and the phase's wall seconds.
+8. Prints the kernel table as one JSON line, then the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no result line.
@@ -1495,7 +1522,7 @@ def f32_lseg_check():
     net = LSegNet(cfg, device="cuda")
     net.load_state_dict(init_params(cfg, gen), strict=True)
     cpu = LSegNet(cfg, device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    cpu.load_state_dict(_cpu_state(net))
     x = torch.randn(2, 192, 192, 3, generator=gen, device="cuda")
     with torch.no_grad():
         got = net(x).cpu()
@@ -1519,8 +1546,7 @@ def clip_check():
     print(f"  ViT-B/32 text tower: {cfg.text_layers} layers, width "
           f"{cfg.text_width}, {cfg.text_heads} heads, context "
           f"{cfg.context_length}; set up in {time.perf_counter() - t0:.1f} s")
-    cpu = ClipEncoder("ViT-B/32", device="cpu", params={
-        k: v.cpu() for k, v in enc.model.state_dict().items()})
+    cpu = ClipEncoder("ViT-B/32", device="cpu", params=_cpu_state(enc.model))
     names = ["chair"] + RESIDENT
     worst = 1.0
     for what, fn in (("plain prompts", lambda e: e.get_text_feats(names)),
@@ -1851,6 +1877,37 @@ def _tf32_probe(module):
     return seen, handle
 
 
+def _cpu_state(module):
+    return {k: v.cpu() for k, v in module.state_dict().items()}
+
+
+def _tf32_on(name: str, modules, fn, checks: dict):
+    """Runs ``fn`` with TF32 switched on for cuDNN and cuBLAS, as a user
+    of the port may have it, and requires both flags off inside every
+    forward of ``modules``."""
+    import torch
+
+    seen, hooks = [], []
+    for m in modules:
+        s, h = _tf32_probe(m)
+        seen.append(s)
+        hooks.append(h)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = fn()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for h in hooks:
+            h.remove()
+    flags = [f for s in seen for f in s]
+    print(f"  TF32 (cuDNN, cuBLAS) inside the {name} forward: {set(flags)}")
+    checks[f"TF32 off inside the {name} forward, on outside"] = bool(
+        flags) and not any(a or b for a, b in flags)
+    return out
+
+
 def _cosine_rows(a, b) -> np.ndarray:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
@@ -1872,7 +1929,8 @@ def _card_vs_cpu(name: str, got, want) -> dict:
 
 def profile_call(fn):
     """(device ms, kernel launches, copies) of one call of ``fn`` from
-    ``torch.profiler``."""
+    ``torch.profiler``; the port's ``record_function`` ranges, which the
+    profiler lists among the device events, are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1882,7 +1940,8 @@ def profile_call(fn):
         fn()
         torch.cuda.synchronize()
     gpu = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith(BUILD_RANGES)]
     copies = [e for e in gpu if e.key.startswith(("Memcpy", "Memset"))]
     ms = sum(e.self_device_time_total for e in gpu) / 1e3
     return (ms, sum(e.count for e in gpu) - sum(e.count for e in copies),
@@ -1917,8 +1976,8 @@ def sound_area_run(enc, scene: Path, rows):
     t0 = time.perf_counter()
     aenc = AudioClipEncoder(seed=0, device="cuda")
     acfg = aenc.cfg.audio
-    acpu = AudioClipEncoder(aenc.cfg, device="cpu", params={
-        k: v.cpu() for k, v in aenc.model.state_dict().items()})
+    acpu = AudioClipEncoder(aenc.cfg, device="cpu",
+                            params=_cpu_state(aenc.model))
     print(f"  AudioCLIP: ESResNeXt {acfg.layers} x{acfg.groups}x"
           f"{acfg.width_per_group}, n_fft {acfg.n_fft}, hop "
           f"{acfg.hop_length}, win {acfg.win_length}, embed "
@@ -1935,26 +1994,11 @@ def sound_area_run(enc, scene: Path, rows):
     spec = aenc.model.audio.spectrogram(torch.from_numpy(batch[:1]).cuda())
     print(f"  one batch: {tuple(batch.shape)} samples -> spectrogram "
           f"{(AUDIO_BATCH,) + tuple(spec.shape[1:])}")
-    seen, hooks = [], []
-    for m in (aenc.model.audio.conv1, aenc.model.audio.fc):
-        s, h = _tf32_probe(m)
-        seen.append(s)
-        hooks.append(h)
     # TF32 on outside, as a user of the port has it by default: the
     # towers must switch it off for themselves
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        card = aenc.encode_audio_device(batch).cpu().numpy()
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        for h in hooks:
-            h.remove()
-    flags = [f for s in seen for f in s]
-    print(f"  TF32 (cuDNN, cuBLAS) inside the audio tower: {set(flags)}")
-    checks["TF32 off inside the audio forward, on outside"] = bool(
-        flags) and not any(a or b for a, b in flags)
+    card = _tf32_on("audio", (aenc.model.audio.conv1, aenc.model.audio.fc),
+                    lambda: aenc.encode_audio_device(batch).cpu().numpy(),
+                    checks)
     checks.update(_card_vs_cpu("audio embeddings, 10 full clips", card,
                                acpu.encode_audio_device(batch).numpy()))
     del acpu
@@ -1968,8 +2012,8 @@ def sound_area_run(enc, scene: Path, rows):
     # the area map's CLIP ViT-L/14 at 224
     t0 = time.perf_counter()
     venc = ClipEncoder("ViT-L/14", seed=0, device="cuda")
-    vcpu = ClipEncoder("ViT-L/14", device="cpu", params={
-        k: v.cpu() for k, v in venc.model.state_dict().items()})
+    vcpu = ClipEncoder("ViT-L/14", device="cpu",
+                       params=_cpu_state(venc.model))
     print(f"  CLIP ViT-L/14 at {venc.cfg.image_size}: set up in "
           f"{time.perf_counter() - t0:.1f} s")
     from avlmaps_torch.pipeline.loader import load_rgb
@@ -2076,6 +2120,504 @@ def sound_area_run(enc, scene: Path, rows):
         print(f"  {'pass' if ok else 'FAIL'}: {name}")
     if not all(checks.values()):
         raise AssertionError("slice 7: the sound and area path failed")
+
+
+# the refinement recipe of tests/test_visual_map.py: a 240x320 textured
+# canvas at 2 m, the query camera moved 25 cm along x; NetVLAD's card-vs-CPU
+# size; Wav2CLIP's batch of the sound map's clips
+REFINE_H, REFINE_W = 240, 320
+REFINE_DEPTH, REFINE_TX = 2.0, 0.25
+W2C_CLIPS = 10
+
+
+def textured_canvas(rng, h: int, w: int) -> np.ndarray:
+    """400 filled squares of 4-9 px in random colours on a dark canvas,
+    drawn with numpy (the recipe's cv2.rectangle fills the same pixels)."""
+    canvas = np.full((h, w, 3), 30, np.uint8)
+    for _ in range(400):
+        x, y = int(rng.integers(0, w - 8)), int(rng.integers(0, h - 8))
+        sz = int(rng.integers(3, 9))
+        canvas[y:y + sz + 1, x:x + sz + 1] = rng.integers(40, 255, 3)
+    return canvas
+
+
+def superpoint_check(frames, checks: dict):
+    """Full-width SuperPoint on one 720x1080 frame, card against CPU;
+    returns the card's extractor, the CPU's and the gray frames."""
+    from avlmaps_torch.map.visual_map import VisualMap
+    from avlmaps_torch.models.superpoint import (SuperPointConfig,
+                                                 SuperPointExtractor)
+
+    cfg = SuperPointConfig()
+    sp = SuperPointExtractor(cfg, seed=0, device="cuda")
+    sp_cpu = SuperPointExtractor(cfg, params=_cpu_state(sp.model),
+                                 device="cpu")
+    grays = np.stack([VisualMap._to_gray(f) for f in frames[:2]])
+    card = _tf32_on("SuperPoint", (sp.model.conv1a, sp.model.convDb),
+                    lambda: sp.extract(grays[:1]), checks)
+    cpu = sp_cpu.extract(grays[:1])
+    pos = {}
+    for side, out in (("card", card), ("cpu", cpu)):
+        kp = out["keypoints"][0][out["valid"][0]]
+        pos[side] = {(float(x), float(y)): i for i, (x, y) in enumerate(kp)}
+    shared = sorted(set(pos["card"]) & set(pos["cpu"]))
+    share = len(shared) / max(len(pos["card"]), len(pos["cpu"]))
+    ic = [pos["card"][k] for k in shared]
+    ip = [pos["cpu"][k] for k in shared]
+    s_err = float(np.abs(card["scores"][0][ic] - cpu["scores"][0][ip]).max())
+    d_err = float(np.abs(card["descriptors"][0][ic]
+                         - cpu["descriptors"][0][ip]).max())
+    ms = time_ms(lambda: sp.extract_device(grays[:1]), iters=5)
+    dev_ms, launches, _ = profile_call(lambda: sp.extract_device(grays[:1]))
+    print(f"  SuperPoint {cfg.channels}, det/desc {cfg.det_ch}, D "
+          f"{cfg.desc_dim}, {grays.shape[1]}x{grays.shape[2]}: "
+          f"{len(pos['card'])} valid keypoints "
+          f"of {cfg.max_keypoints}; card vs CPU: {len(shared)} shared "
+          f"(share {share:.4f}), at shared keypoints max |score d| "
+          f"{s_err:.2e}, max |descriptor d| {d_err:.2e}; {ms:.2f} ms an "
+          f"image (CUDA events, upload to keypoints), {dev_ms:.3f} ms of "
+          f"device work in {launches} kernel launches (profiler)")
+    checks["SuperPoint: keypoint sets card vs CPU share >= 0.99"] = \
+        share >= 0.99
+    checks["SuperPoint: shared scores within 1e-6, descriptors within "
+           "1e-4"] = s_err <= 1e-6 and d_err <= 1e-4
+    return sp, sp_cpu, grays, ms
+
+
+def superglue_check(sp, grays, checks: dict):
+    """Full-width SuperGlue with 100 Sinkhorn iterations on two frames'
+    1024 + 1024 keypoints, card against CPU."""
+    import torch
+
+    from avlmaps_torch.models.superglue import (SuperGlueConfig,
+                                                SuperGlueMatcher,
+                                                match_from_assignment)
+
+    cfg = SuperGlueConfig(sinkhorn_iters=100)
+    sg = SuperGlueMatcher(cfg, seed=0, device="cuda")
+    sg_cpu = SuperGlueMatcher(cfg, params=_cpu_state(sg.model), device="cpu")
+    f0, f1 = sp.extract(grays[:1]), sp.extract(grays[1:2])
+    hw = grays.shape[1:]
+    z = _tf32_on("SuperGlue", (sg.model.kenc.enc0, sg.model.final_proj),
+                 lambda: sg.assignment(f0, f1, hw).cpu(), checks)
+    z_cpu = sg_cpu.assignment(f0, f1, hw)
+    err = float((z - z_cpu).abs().max())
+    v0 = torch.from_numpy(f0["valid"])
+    v1 = torch.from_numpy(f1["valid"])
+    agree = {}
+    for th in (cfg.match_threshold, 0.0):
+        a = match_from_assignment(z, v0, v1, th)[0]
+        b = match_from_assignment(z_cpu, v0, v1, th)[0]
+        agree[th] = (float((a == b).float().mean()), int((b >= 0).sum()))
+    dev0 = {k: torch.from_numpy(v).cuda() for k, v in f0.items()}
+    dev1 = {k: torch.from_numpy(v).cuda() for k, v in f1.items()}
+    ms = time_ms(lambda: sg.match(dev0, dev1, hw), iters=5)
+    dev_ms, launches, copies = profile_call(lambda: sg.match(dev0, dev1, hw))
+    print(f"  SuperGlue {cfg.gnn_layers} layer pairs, {cfg.heads} heads, D "
+          f"{cfg.desc_dim}, {cfg.sinkhorn_iters} Sinkhorn iterations, "
+          f"{z.shape[1] - 1} + {z.shape[2] - 1} keypoints: Z card vs CPU "
+          f"max |d| {err:.2e}; decisions agree "
+          + ", ".join(f"{s:.4f} at threshold {t} ({n} CPU matches)"
+                      for t, (s, n) in agree.items())
+          + f"; {ms:.2f} ms a match (CUDA events), {dev_ms:.3f} ms of "
+          f"device work in {launches} kernel launches and {copies} copies "
+          "(profiler)")
+    checks["SuperGlue: Z card vs CPU within 1e-3"] = err <= 1e-3
+    checks["SuperGlue: decisions agree on >= 0.99 of the rows"] = min(
+        s for s, _ in agree.values()) >= 0.99
+    return ms, launches
+
+
+def netvlad_check(frames, checks: dict):
+    """Full-width NetVLAD (VGG16 + VLAD + 32,768 -> 4,096 whitening):
+    card against CPU at 240x320, then frames/s over the scene's frames at
+    720x1080."""
+    import torch
+
+    from avlmaps_torch.models.netvlad import NetVLADConfig, NetVLADEncoder
+
+    cfg = NetVLADConfig()
+    nv = NetVLADEncoder(cfg, seed=0, device="cuda")
+    nv_cpu = NetVLADEncoder(cfg, params=_cpu_state(nv.model), device="cpu")
+    small = [np.ascontiguousarray(f[:REFINE_H, :REFINE_W]) for f in frames[:2]]
+    card = _tf32_on("NetVLAD", (nv.model.backbone.conv_0, nv.model.whiten),
+                    lambda: nv.get_imgs_feats_batch(small, 2), checks)
+    checks.update(_card_vs_cpu("NetVLAD at 240x320, 2 frames", card,
+                               nv_cpu.get_imgs_feats_batch(small, 2)))
+    del nv_cpu
+    nv.get_imgs_feats_batch(frames[:8], 8)  # cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    descs = nv.get_imgs_feats_batch(frames, 8)
+    wall = time.perf_counter() - t0
+    fps = len(frames) / wall
+    print(f"  NetVLAD at {frames[0].shape[0]}x{frames[0].shape[1]}: "
+          f"{len(frames)} frames in batches of 8 in "
+          f"{wall:.3f} s, {fps:.2f} frames/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    checks["NetVLAD: (frames, 4096) finite, unit rows"] = bool(
+        descs.shape == (len(frames), cfg.whiten_dim)
+        and np.isfinite(descs).all()
+        and np.allclose(np.linalg.norm(descs, axis=1), 1.0, atol=1e-5))
+    return nv, fps
+
+
+def write_mosaic_scene(root: Path, n: int, seed: int, h: int = 720,
+                       w: int = 1080):
+    """``n`` frames of 40-pixel blocks in random colours (every frame a
+    different image, unlike the slice-1 walk, whose frames share one
+    gradient and differ only by noise: seeded weights cannot tell those
+    apart above rounding) and identity poses; returns the frames."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    (root / "rgb").mkdir(parents=True)
+    frames = []
+    for i in range(n):
+        blocks = rng.integers(0, 256, (h // 40, w // 40, 3), dtype=np.uint8)
+        frame = np.repeat(np.repeat(blocks, 40, axis=0), 40, axis=1)
+        cv2.imwrite(str(root / "rgb" / f"{i:06d}.png"), frame[..., ::-1])
+        frames.append(frame)
+    np.savetxt(root / "poses.txt", np.tile([0, 0, 0, 0, 0, 0, 1.0], (n, 1)))
+    return frames
+
+
+def retrieval_check(tmp: Path, encoders, checks: dict):
+    """``VisualMap.create_and_load_map`` with each encoder on 16 mosaic
+    frames at 720x1080; a mapping frame must retrieve itself."""
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.visual_map import VisualMap
+
+    root = tmp / "mosaic"
+    frames = write_mosaic_scene(root, 16, seed=3)
+    mc = load_config().map_config
+    q = 5
+    for name, encoder in encoders:
+        vm = VisualMap(mc, clip_encoder=encoder, device="cuda")
+        t0 = time.perf_counter()
+        vm.create_and_load_map(root)
+        t_build = time.perf_counter() - t0
+        sims = vm.descriptors @ encoder.get_img_feats(frames[q]).T
+        top = np.argsort(sims[:, 0])[::-1][:2]
+        hit = int(vm.retrieve(frames[q])[0])
+        print(f"  retrieval with {name}: {vm.descriptors.shape} descriptors "
+              f"cached in {t_build:.2f} s; frame {q} retrieves frame {hit} "
+              f"(cosine {sims[top[0], 0]:.6f}, runner-up frame {top[1]} at "
+              f"{sims[top[1], 0]:.6f})")
+        checks[f"retrieval with {name}: a mapping frame retrieves "
+               "itself"] = hit == q
+
+
+def refinement_check(tmp: Path, sp, sp_cpu, checks: dict):
+    """The textured-shift recipe through ``refine_pose`` with the
+    full-width SuperPoint and the mutual-NN matcher, on the CPU and on
+    the card: the 25 cm translation within 6 cm, the rotation within
+    0.05."""
+    import cv2
+
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.geometry.projection import get_sim_cam_mat
+    from avlmaps_torch.geometry.transforms import pose_vec_to_tf
+    from avlmaps_torch.map.visual_map import VisualMap
+
+    h, w = REFINE_H, REFINE_W
+    root = tmp / "refine"
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    intr = get_sim_cam_mat(h, w)
+    shift = int(round(intr[0, 0] * REFINE_TX / REFINE_DEPTH))
+    tex = textured_canvas(np.random.default_rng(0), h, w + shift)
+    cv2.imwrite(str(root / "rgb" / "000000.png"), tex[:, :w, ::-1])
+    np.save(root / "depth" / "000000.npy",
+            np.full((h, w), REFINE_DEPTH, np.float32))
+    query = np.ascontiguousarray(tex[:, shift:w + shift])
+    mc = load_config().map_config
+    mc.cam_calib_mat = tuple(intr.reshape(-1))
+    for device, ext in (("cpu", sp_cpu), ("cuda", sp)):
+        vm = VisualMap(mc, str(root), superpoint=ext, device=device)
+        vm.poses = np.stack([pose_vec_to_tf([0, 0, 0, 0, 0, 0, 1.0])])
+        vm.descriptors = np.ones((1, 8), np.float32)
+        n = len(vm._match_superpoint(query, 0)[0])
+        cam = vm.refine_pose(query, 0, intr)
+        ok = cam is not None
+        if ok:
+            ref = vm._ref_cam_tf(0)
+            delta = cam[:3, 3] - ref[:3, 3]
+            rot = float(np.abs(cam[:3, :3] - ref[:3, :3]).max())
+            ok = bool(np.abs(delta - [REFINE_TX, 0, 0]).max() <= 0.06
+                      and rot <= 0.05)
+            print(f"  refine_pose on {device}: {n} mutual-NN matches, "
+                  f"translation {np.round(delta, 4).tolist()} m (truth "
+                  f"[{REFINE_TX}, 0, 0]), rotation max |d| {rot:.4f}")
+        checks[f"refine_pose on {device}: 25 cm within 6 cm"] = ok
+
+
+def image_query_check(enc, scene: Path, frames, rows, checks: dict):
+    """``AVLMap.load_map`` with the visual map, ``index_image`` against the
+    host formula, and the object (K7; K8 with the categories) x image goal
+    on the card against the host argmax."""
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.avlmap import AVLMap
+    from avlmaps_torch.ops import delivery as dlv
+
+    for r in rows:
+        r["fn"].launches = 0
+    cfg = load_config()
+    avl = AVLMap(cfg, clip_encoder=enc, area_clip_encoder=enc,
+                 device="cuda")
+    t0 = time.perf_counter()
+    avl.load_map(scene)
+    t_load = time.perf_counter() - t0
+    vm = avl.vlmap
+    q = frames[7]
+    t0 = time.perf_counter()
+    heat = avl.index_image(q)
+    t_query = time.perf_counter() - t0
+    cam, base_tf = avl.visual_map.localize_image(q)
+    # the host formula (avlmaps_tpu/map/avlmap.py:231-240)
+    avl.dataloader.from_habitat_tf(base_tf)
+    row, col, _ = avl.dataloader.to_full_map_pose()
+    pos = np.array([row, col, cfg.map_config.pose_info.camera_height
+                    / cfg.params.cs], np.float32)
+    host = np.clip(1.0 - 0.01 * np.linalg.norm(
+        (vm.grid_pos.astype(np.float32) - pos)[:, :2], axis=1), 0.0, 1.0)
+    moved = float(np.abs(cam[:3, 3] - avl.visual_map._ref_cam_tf(7)[:3,
+                                                                     3]).max())
+    print(f"  AVLMap.load_map with the visual map in {t_load:.2f} s; "
+          f"index_image(frame 7) in {t_query * 1e3:.1f} ms (host clock): "
+          f"pose cell ({row}, {col}), {moved:.4f} m from frame 7's camera, "
+          f"{int((heat > 0).sum())} of {len(heat)} voxels with heat > 0")
+    dev = avl.index_image(q, decay_rate=0.01, delivery="device")
+    checks["index_image == the host formula, f32 and device"] = bool(
+        np.array_equal(heat, host) and np.array_equal(dev.cpu().numpy(),
+                                                      host))
+    cats = MP3D[1:-1]
+    avl.index_object("chair", init_categories=MP3D, delivery="device")
+    labels = np.argmax(vm.scores_mat, axis=1)
+    top = cats[int(np.bincount(labels, minlength=len(cats) + 1)[
+        :len(cats)].argmax())]
+    for label, obj in (
+            ("K8", avl.index_object(top, init_categories=MP3D,
+                                    decay_rate=0.01, delivery="device")),
+            ("K7", avl.index_object("chair", decay_rate=0.01,
+                                    delivery="device"))):
+        gpos, val = dlv.fetch_np(*dlv.fused_goal_pick([obj, dev],
+                                                      vm.grid_pos))
+        fused = obj.cpu().numpy() * host
+        print(f"  object ({label}) x image: goal {np.asarray(gpos).tolist()}"
+              f", heat {float(val):.4f}")
+        checks[f"object ({label}) x image goal == host argmax, heat > 0"] = \
+            bool(np.array_equal(gpos, vm.grid_pos[int(np.argmax(fused))])
+                 and abs(float(val) - float(fused.max())) <= 1e-6
+                 and float(val) > 0)
+    counts = {r["name"]: r["fn"].launches for r in rows}
+    for r in rows:
+        r["slice8_launches"] = r["fn"].launches
+    print(f"  image query launches: {counts}")
+    checks["K7 and K8 launched by the image query's fusion"] = min(
+        counts.values()) >= 1
+
+
+def multi_scale_check(frames, rows, checks: dict):
+    """``multi_scale_features`` on one 720x1080 frame: the medium f32 LSeg
+    card against CPU within 5e-3, and the ViT-L/16 bf16 LSeg on the card
+    (K1-K3 launches = 24 x forwards, crops, ms a frame, pixels/s; each
+    forward's crops through the fused and the plain route).  Returns the
+    kernel rows of :func:`multi_scale_shape_checks`."""
+    import torch
+
+    from avlmaps_torch.models.lseg import (DEFAULT_SCALES, LSegConfig,
+                                           LSegNet,
+                                           cast_params_for_inference,
+                                           init_params,
+                                           multi_scale_features,
+                                           normalize_image, plan_windows)
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on for matmul or cuDNN")
+    h, w = frames[0].shape[:2]
+    x = torch.from_numpy(normalize_image(frames[0])[None].astype(np.float32))
+    crops = 2 * sum(len(plan_windows(h, w, math.ceil(520 * s), 480)[4])
+                    for s in DEFAULT_SCALES)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    cfg = LSegConfig.medium()
+    net = LSegNet(cfg, device="cuda")
+    net.load_state_dict(init_params(cfg, gen), strict=True)
+    cpu = LSegNet(cfg, device="cpu")
+    cpu.load_state_dict(_cpu_state(net))
+    with torch.no_grad():
+        got = multi_scale_features(net, x.cuda()).cpu()
+        want = multi_scale_features(cpu, x)
+    err = float((got - want).abs().max())
+    print(f"  medium f32 LSeg, 6 scales with flip ({crops} crops), "
+          f"{h}x{w}: card vs CPU max |diff| {err:.3e} (tolerance 5e-3 + "
+          "5e-3 * |CPU|)")
+    checks["multi-scale medium LSeg: card == CPU within 5e-3"] = bool(
+        torch.allclose(got, want, atol=5e-3, rtol=5e-3))
+    del net, cpu, got, want
+
+    cfg = LSegConfig.vitl16(torch.bfloat16)
+    gen.manual_seed(0)
+    net = LSegNet(cfg, device="cuda")
+    net.load_state_dict(init_params(cfg, gen), strict=True)
+    cast_params_for_inference(net)
+    net.eval().requires_grad_(False)
+    forwards, batches = [], []
+
+    def apply(batch):
+        forwards.append(batch.shape[0])
+        batches.append(batch)
+        return net(batch)
+
+    xc = x.cuda()
+    for r in rows:
+        r["fn"].launches = 0
+    with torch.no_grad():
+        out = multi_scale_features(apply, xc)
+        counts = {r["name"]: r["fn"].launches for r in rows}
+        ms = time_ms(lambda: multi_scale_features(net, xc), iters=3)
+        dev_ms, launches, _ = profile_call(
+            lambda: multi_scale_features(net, xc))
+    for r in rows:
+        r["slice8_launches"] = counts[r["name"]]
+    print(f"  ViT-L/16 bf16 LSeg, 6 scales with flip: {len(forwards)} "
+          f"forwards of {forwards} crops ({sum(forwards)} a frame), "
+          f"{ms:.1f} ms a frame (CUDA events), {h * w * 1e3 / ms:.0f} "
+          f"pixels/s, {dev_ms:.1f} ms of device work in {launches} kernel "
+          f"launches (profiler); port kernels {counts}")
+    checks["multi-scale ViT-L: K1-K3 launched 24 x forwards"] = all(
+        n == LAYERS * len(forwards) for n in counts.values())
+    checks["multi-scale ViT-L: crops a frame as planned"] = \
+        sum(forwards) == crops
+    checks["multi-scale ViT-L: (1, H, W, 512) finite"] = bool(
+        out.shape == (1, h, w, cfg.out_dim) and torch.isfinite(out).all())
+    del out
+    before = {r["name"]: r["fn"].launches for r in rows}
+    # each forward's crops again through the fused route (K1-K3) and the
+    # plain route (no port kernel) on the same weights; per-pixel cosine
+    # as the slice-1 one-crop check holds the card to the CPU: 24 bf16
+    # blocks whose sums run in another order on each side
+    cos = []
+    with torch.no_grad():
+        for batch in batches:
+            fused = net(batch, upsample=False).float()
+            for blk in net.backbone.blocks:
+                blk.attn_impl = "xla"
+            try:
+                plain = net(batch, upsample=False).float()
+            finally:
+                for blk in net.backbone.blocks:
+                    blk.attn_impl = "fused"
+            cos.append(float(torch.nn.functional.cosine_similarity(
+                fused, plain, dim=-1).min()))
+            del fused, plain
+    print("  ViT-L multi-scale forwards, fused route (K1-K3) against the "
+          "plain route, per-pixel cosine min: " + ", ".join(
+              f"{b} crops {c:.6f}" for b, c in zip(forwards, cos)))
+    checks["multi-scale ViT-L: every forward's fused route == plain route "
+           "(per-pixel cosine >= 0.999)"] = min(cos) >= 0.999
+    del batches
+    torch.cuda.empty_cache()
+    shape_rows = multi_scale_shape_checks(forwards)
+    for r in rows:
+        r["fn"].launches = before[r["name"]]
+    return shape_rows
+
+
+def multi_scale_shape_checks(forwards):
+    """K1, K3 and K2 at the multi-scale eval's crop batches that the
+    batch-8 rows do not cover (M = b * T rows for b crops; attention on
+    (b, 16, T, 64)) against their plain versions, with times, bounds and
+    library times; the launches are the eval's at that batch (24 a
+    forward)."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    out = []
+    for b in sorted(set(forwards) - {BATCH * CROPS}):
+        for r in (k1_case(g, b * T, 3 * WIDTH), k3_case(g, b * T),
+                  k2_case(g, b, T)[0]):
+            r["launches"] = LAYERS * forwards.count(b)
+            r["shape"] = (f"({b}, {HEADS}, {T}, 64)"
+                          if r["name"] == "mha_oneshot_2d" else f"M={b * T}")
+            print(f"  {r['name']} {r['shape']}: {_times(r)}, "
+                  f"{r['launches']} launches in the multi-scale eval")
+            out.append(r)
+    torch.cuda.empty_cache()
+    return out
+
+
+def wav2clip_check(scene: Path, checks: dict):
+    """Full-width Wav2CLIP on 10 of the sound map's clips, card against
+    CPU."""
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.models.wav2clip import Wav2ClipEncoder
+    from avlmaps_torch.utils import audio as au
+
+    cc = load_config().sound_data_collect_params
+    clips = []
+    for seq in sorted((scene / "audio_video").iterdir())[:4]:
+        audio, sr = au.read_wav(seq / "audio.wav", cc.sample_rate)
+        _, tracks = au.segment_audio_with_silence(
+            audio, cc.silence_duration_s, cc.silence_threshold, sr)
+        clips += [au.get_five_second_context(t, 2.5, sr) for t in tracks]
+    batch = np.stack(clips[:W2C_CLIPS]).astype(np.float32)
+    w2c = Wav2ClipEncoder(seed=0, device="cuda")
+    w2c_cpu = Wav2ClipEncoder(params=_cpu_state(w2c.model), device="cpu")
+    card = _tf32_on("Wav2CLIP", (w2c.model.conv1, w2c.model.fc),
+                    lambda: w2c.encode_device(batch).cpu().numpy(), checks)
+    checks.update(_card_vs_cpu(f"Wav2CLIP embeddings, {len(batch)} clips",
+                               card, w2c_cpu.encode_device(batch).numpy()))
+    ms = time_ms(lambda: w2c.encode_device(batch), iters=5)
+    dev_ms, launches, _ = profile_call(lambda: w2c.encode_device(batch))
+    print(f"  Wav2CLIP ResNet-18 width {w2c.cfg.width}, {w2c.cfg.n_mels} "
+          f"mels: a batch of {batch.shape} in {ms:.2f} ms (CUDA events), "
+          f"{len(batch) * 1e3 / ms:.1f} clips/s, {dev_ms:.3f} ms of device "
+          f"work in {launches} kernel launches (profiler)")
+    return ms
+
+
+def image_query_run(enc, scene: Path, tmp: Path, vit_rows, score_rows):
+    """Slice 8 on the slice-1 scene: SuperPoint, SuperGlue and NetVLAD at
+    full width against the CPU, retrieval with NetVLAD and CLIP, the
+    textured refinement, ``AVLMap.index_image`` and its fused goal, the
+    multi-scale LSeg eval and Wav2CLIP.  ``vit_rows`` are K1-K3's kernel
+    rows, ``score_rows`` K7's and K8's; each gets its slice-8 count.
+    Returns K1-K3's rows at the multi-scale eval's other shapes."""
+    from avlmaps_torch.map.visual_map import rgb_to_gray_u8
+    from avlmaps_torch.pipeline.loader import load_rgb
+
+    t_phase = time.perf_counter()
+    checks = {}
+    frames = [load_rgb(p) for p in sorted((scene / "rgb").glob("*.png"))]
+    try:
+        import cv2
+    except ImportError:
+        print("  cv2: not installed on this machine")
+    else:
+        print(f"  cv2 {cv2.__version__} is installed")
+        checks["rgb_to_gray_u8 == cv2.cvtColor on a scene frame"] = \
+            np.array_equal(rgb_to_gray_u8(frames[0]),
+                           cv2.cvtColor(frames[0], cv2.COLOR_RGB2GRAY))
+    sp, sp_cpu, grays, _ = superpoint_check(frames, checks)
+    superglue_check(sp, grays, checks)
+    nv, _ = netvlad_check(frames, checks)
+    retrieval_check(tmp, (("NetVLAD", nv), ("CLIP ViT-B/32", enc)), checks)
+    del nv
+    refinement_check(tmp, sp, sp_cpu, checks)
+    image_query_check(enc, scene, frames, score_rows, checks)
+    shape_rows = multi_scale_check(frames, vit_rows, checks)
+    wav2clip_check(scene, checks)
+    print(f"  slice 8 phase: {time.perf_counter() - t_phase:.1f} s wall")
+    for name, ok in checks.items():
+        print(f"  {'pass' if ok else 'FAIL'}: {name}")
+    if not all(checks.values()):
+        raise AssertionError("slice 8: the image query path failed")
+    return shape_rows
 
 
 def ptxas_gate(logs) -> None:
@@ -2190,6 +2732,11 @@ def main() -> int:
               "AVLMap.load_map, area / sound / multimodal queries at "
               "gs=1000:")
         sound_area_run(enc, scene, rows[4:])
+        print("slice 8: SuperPoint, SuperGlue, NetVLAD, the visual map and "
+              "AVLMap.index_image, the multi-scale LSeg eval and Wav2CLIP "
+              "on the slice-1 scene:")
+        thr_rows += image_query_run(enc, scene, Path(tmp), rows[:3],
+                                    rows[4:])
     launches = {r["name"]: r["launches"] for r in rows[4:]}
     print(f"  slice 2 launches: {launches}")
     print(f"position gate: {GATE.n_builds} builds, {GATE.n_steps} fusion "
@@ -2201,6 +2748,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = {"device_ms": "dev", "path": "path",
              "slice7_launches": "slice7_launches",
+             "slice8_launches": "slice8_launches",
              "library_device_ms": "library_dev", "runs": "runs",
              "real_step": "real_step"}
     table = [{**{k: r[k] for k in keys},

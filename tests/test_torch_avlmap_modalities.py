@@ -331,3 +331,68 @@ def test_dataloader_is_built_on_the_loaded_vlmap(loaded):
                                                         jm.dataloader.cmin)
     np.testing.assert_array_equal(tm.dataloader.obstacles_cropped,
                                   jm.dataloader.obstacles_cropped)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_visual_map_caches_agree_across_packages(built, writer):
+    """Both packages build the visual map's descriptor cache in create_map
+    (the tiny CLIP image tower, 24-d); each file reads to one array
+    through h5py and the port's codec, and the two packages' caches
+    agree."""
+    from avlmaps_torch.map import hdf5
+
+    path = built[writer] / "visual_map" / "global_descriptors_24.h5df"
+    with h5py.File(str(path), "r") as f:
+        want = f["descriptors"][()]
+    assert want.shape == (4, 24) and want.dtype == np.float32
+    np.testing.assert_array_equal(hdf5.read(path)["descriptors"], want)
+    other = built["torch" if writer == "jax" else "jax"]
+    with h5py.File(str(other / "visual_map" / "global_descriptors_24.h5df"),
+                   "r") as f:
+        np.testing.assert_allclose(f["descriptors"][()], want, atol=ATOL)
+
+
+def _frame(scene, i):
+    from avlmaps_torch.pipeline.loader import load_rgb
+
+    return load_rgb(scene / "rgb" / f"{i:06d}.png")
+
+
+def test_index_image_agrees(loaded, built):
+    """A mapping frame as the query: retrieval finds it, the 32x32 frame
+    gives ORB nothing to match, so both packages fall back to its pose;
+    the heat is the same f32 formula, to the bit."""
+    jm, tm = loaded
+    n = tm.vlmap.grid_pos.shape[0]
+    for i in (1, 3):
+        query = _frame(built["jax"], i)
+        assert int(tm.visual_map.retrieve(query)[0]) == i
+        for decay in (0.01, 0.2):
+            got = tm.index_image(query, decay_rate=decay)
+            want = jm.index_image(query, decay_rate=decay)
+            assert got.dtype == np.float32 and got.shape == (n,)
+            np.testing.assert_array_equal(got, want)
+        assert 0.0 < got.max() <= 1.0 and got.min() < got.max()
+        dev = tm.index_image(query, delivery="device")
+        assert isinstance(dev, torch.Tensor)
+        np.testing.assert_array_equal(dev.numpy(), tm.index_image(query))
+    with pytest.raises(ValueError, match="delivery"):
+        tm.index_image(query, delivery="u8")
+
+
+def test_object_times_image_agrees(loaded, built):
+    """The object x image goal, fused on the device."""
+    jm, tm = loaded
+    query = _frame(built["jax"], 2)
+    kw = dict(init_categories=MP3D, decay_rate=0.01)
+    tobj = tm.index_object("chair", delivery="device", **kw)
+    timg = tm.index_image(query, decay_rate=0.05, delivery="device")
+    jobj = jm.index_object("chair", **kw)
+    jimg = jm.index_image(query, decay_rate=0.05)
+    pos, heat = dlv.fetch_np(*dlv.fused_goal_pick([tobj, timg],
+                                                  tm.vlmap.grid_pos))
+    _, jheat = jax_dlv.fetch_np(*jax_dlv.fused_goal_pick(
+        [jobj, jimg], jm.vlmap.grid_pos))
+    np.testing.assert_allclose(heat, jheat, atol=ATOL)
+    fused = tobj.numpy() * timg.numpy()
+    np.testing.assert_array_equal(pos, tm.vlmap.grid_pos[np.argmax(fused)])

@@ -177,3 +177,37 @@ def test_slice_3_entry_points_default_to_cuda_and_raise_without_a_card(
     for factory in (make_frame_step, make_frame_step_device_sampled):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             factory(lambda x: x, **kw)
+
+
+def test_slice_8_modules_are_scanned():
+    names = {p.relative_to(REPO / "avlmaps_torch").as_posix()
+             for p in PACKAGE}
+    assert {"models/superpoint/model.py", "models/superpoint/port.py",
+            "models/superglue/model.py", "models/superglue/port.py",
+            "models/netvlad/model.py", "models/netvlad/port.py",
+            "models/wav2clip.py", "map/visual_map.py",
+            "utils/esc50.py"} <= names
+
+
+def test_slice_8_entry_points_default_to_cuda_and_raise_without_a_card(
+        monkeypatch):
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.visual_map import VisualMap
+    from avlmaps_torch.models.netvlad import NetVLADConfig, NetVLADEncoder
+    from avlmaps_torch.models.superglue import (SuperGlueConfig,
+                                                SuperGlueMatcher)
+    from avlmaps_torch.models.superpoint import (SuperPointConfig,
+                                                 SuperPointExtractor)
+    from avlmaps_torch.models.wav2clip import Wav2ClipConfig, Wav2ClipEncoder
+
+    _no_card(monkeypatch)
+    calls = [
+        lambda: VisualMap(load_config().map_config),
+        lambda: SuperPointExtractor(SuperPointConfig.tiny()),
+        lambda: SuperGlueMatcher(SuperGlueConfig.tiny()),
+        lambda: NetVLADEncoder(NetVLADConfig.tiny()),
+        lambda: Wav2ClipEncoder(Wav2ClipConfig.tiny()),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()

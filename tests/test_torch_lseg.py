@@ -174,6 +174,23 @@ def test_projection_matches_jax(rng):
                                   jproj.get_sim_cam_mat(12, 18))
 
 
+def test_fov_intrinsics_and_point_projection_match_jax(rng):
+    """Host helpers: exact, including negative projections, where
+    ``int(u - 0.5)`` truncates toward zero rather than flooring."""
+    for h, w, fov in ((720, 1080, 90), (240, 320, 60.5), (7, 9, 120)):
+        np.testing.assert_array_equal(
+            tproj.get_sim_cam_mat_with_fov(h, w, fov),
+            jproj.get_sim_cam_mat_with_fov(h, w, fov))
+    cam = jproj.get_sim_cam_mat_with_fov(48, 64, 90)
+    pts = np.concatenate([rng.uniform(-3, 3, (200, 2)),
+                          rng.uniform(0.2, 4, (200, 1))], axis=1)
+    pts[0] = [-0.99, 0.0, 1.0]  # u - 0.5 = -0.18: truncates to 0, not -1
+    got, want = tproj.project_points(cam, pts), jproj.project_points(cam, pts)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got[0][0] == 0 and (got[0] < 0).any()
+
+
 def test_grid_ids_match_jax_including_double_truncation(rng):
     gs, cs, vh = 40, 0.1, 8
     pos = rng.uniform(-2.5, 2.5, (500, 3)).astype(np.float32)
@@ -266,6 +283,27 @@ def test_window_features_flip_match_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=5e-3, atol=5e-3)
     # the mirrored pass is seen: the sum is not twice the unmirrored one
     assert np.abs(got.numpy() - 2 * plain.numpy()).max() > 0.1
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_multi_scale_features_match_jax(flip):
+    """``multi_scale_features`` at the six default scales on the tiny16
+    network, 40x56 frames, base 32 / crop 32: scales 0.5-1.0 fit one
+    padded crop, 1.25-1.75 run the overlapping grid (JAX's case:
+    tests/test_lseg.py::TestMultiScaleFlip).  The golden 5e-3, on a sum
+    of six scales."""
+    jnet, variables, tnet = _pair("tiny16")
+    img = np.random.default_rng(7).normal(size=(1, 40, 56, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        got = twin.multi_scale_features(tnet, torch.from_numpy(img), 32, 32,
+                                        flip=flip)
+    want = np.asarray(jwin.multi_scale_features(jnet, variables,
+                                                jnp.asarray(img), 32, 32,
+                                                flip=flip))
+    assert twin.DEFAULT_SCALES == jwin.DEFAULT_SCALES
+    assert got.shape == (1, 40, 56, 24) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=5e-3, atol=5e-3)
 
 
 def test_bilinear_patch_sample_matches_jax(rng):

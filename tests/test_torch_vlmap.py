@@ -174,12 +174,15 @@ def test_heatmap_rgb(scene):
 @pytest.mark.parametrize("method,args", [
     ("index_image", (np.zeros((8, 8, 3), np.uint8),))])
 def test_unported_methods_raise(method, args):
-    """The visual map is the one modality not ported; the area and sound
-    queries are held to the JAX package's in
-    tests/test_torch_avlmap_modalities.py."""
+    """Nothing in AVLMap is left unported: the image query goes to the
+    port's visual map, which raises before a map is loaded (the query
+    itself is held to the JAX package's in
+    tests/test_torch_avlmap_modalities.py)."""
+    from avlmaps_torch.map.visual_map import VisualMap
+
     tm = AVLMap(_configure(load_config()), device="cpu")
-    assert tm.visual_map is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    assert isinstance(tm.visual_map, VisualMap)
+    with pytest.raises(RuntimeError, match="create_and_load_map"):
         getattr(tm, method)(*args)
 
 
