@@ -9,6 +9,9 @@ tests import every module without ``nvcc`` or a card.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all
 of them (a cold build costs as long as the slowest source, not the sum).
+:func:`start_compile` / :func:`finish_compile` name and install any
+library this way; ``nav/native.py`` builds the planner's C++ core with
+them and ``g++``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -51,40 +54,63 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+def library_target(src: Path, flags: Sequence[str]) -> Path:
+    """``_build/<stem>-<hash>.so`` for ``src`` compiled with ``flags``; the
+    hash covers the source text and the flags."""
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+                            + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def _staging(target: Path) -> Path:
+    return target.with_suffix(f".{os.getpid()}.tmp.so")
+
+
+def start_compile(compiler: str, src: Path, flags: Sequence[str],
+                  extra: Sequence[str] = ()) -> subprocess.Popen:
+    """Start ``compiler flags extra -o <tmp> src``: the library is written
+    into a file private to this process, its combined output to
+    ``_build/<stem>.log``.  :func:`finish_compile` moves it into place."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [compiler, *flags, *extra, "-o",
+           str(_staging(library_target(src, flags))), str(src)]
+    with open(BUILD_DIR / f"{src.stem}.log", "w") as log:
+        return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+
+
+def finish_compile(proc: subprocess.Popen, src: Path, flags: Sequence[str],
+                   timeout: Optional[float] = None) -> Path:
+    """Wait for :func:`start_compile`'s process and rename its library onto
+    :func:`library_target`, so processes building at once never load a
+    half-written file; raises ``RuntimeError`` with the log on failure."""
+    target = library_target(src, flags)
+    try:
+        rc = proc.wait(timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    if rc != 0:
+        _staging(target).unlink(missing_ok=True)
+        log = (BUILD_DIR / f"{src.stem}.log").read_text()
+        raise RuntimeError(f"{proc.args[0]} failed for {src.name} "
+                           f"(exit {rc}):\n{log}")
+    os.replace(_staging(target), target)
+    return target
 
 
 def _start(name: str) -> Optional[Tuple[str, subprocess.Popen]]:
-    """Start compiling ``name`` unless its library is current; returns
-    ``(name, process)``, the process writing into a temporary file and its
-    combined output to ``_build/<name>.log``."""
-    if _target(name).exists():
+    """Start compiling ``csrc/<name>.cu`` unless its library is current."""
+    src = CSRC_DIR / f"{name}.cu"
+    if library_target(src, NVCC_FLAGS).exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS]
     cutlass = Path("/usr/local/cutlass/include")
-    if cutlass.is_dir():
-        cmd += ["-I", str(cutlass)]
-    cmd += ["-o", str(_tmp(name)), str(CSRC_DIR / f"{name}.cu")]
-    with open(BUILD_DIR / f"{name}.log", "w") as log:
-        return name, subprocess.Popen(cmd, stdout=log,
-                                      stderr=subprocess.STDOUT)
-
-
-def _tmp(name: str) -> Path:
-    return _target(name).with_suffix(f".{os.getpid()}.tmp.so")
+    extra = ["-I", str(cutlass)] if cutlass.is_dir() else []
+    return name, start_compile(_nvcc(), src, NVCC_FLAGS, extra)
 
 
 def _finish(name: str, proc: subprocess.Popen) -> None:
-    rc = proc.wait()
-    if rc != 0:
-        log = (BUILD_DIR / f"{name}.log").read_text()
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {rc}):\n{log}")
-    os.replace(_tmp(name), _target(name))
+    finish_compile(proc, CSRC_DIR / f"{name}.cu", NVCC_FLAGS)
 
 
 def build_all() -> Dict[str, str]:
@@ -139,6 +165,7 @@ def load(name: str) -> ctypes.CDLL:
         started = _start(name)
         if started is not None:
             _finish(*started)
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_target(CSRC_DIR / f"{name}.cu",
+                                                NVCC_FLAGS)))
         _libs[name] = lib
         return lib

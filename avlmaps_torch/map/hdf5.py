@@ -63,8 +63,13 @@ def _object_header(messages) -> bytes:
 def write(path: Union[str, Path], datasets: Mapping[str, np.ndarray]) -> None:
     """Write ``datasets`` (name -> array) as one root group."""
     names = sorted(datasets)
-    if len(names) > 2 * LEAF_K:
-        raise ValueError(f"hdf5: at most {2 * LEAF_K} datasets per file")
+    # the sorted names fill symbol-table nodes of 2 * LEAF_K entries, all
+    # children of the one group B-tree node (as h5py lays out a group)
+    leaves = [names[i:i + 2 * LEAF_K]
+              for i in range(0, len(names), 2 * LEAF_K)] or [[]]
+    if len(leaves) > 2 * INTERNAL_K:
+        raise ValueError(f"hdf5: at most {4 * LEAF_K * INTERNAL_K} "
+                         "datasets per file")
     # np.asarray keeps 0-d scalars 0-d (ascontiguousarray would not)
     arrays = {n: np.asarray(datasets[n]) for n in names}
     for n, a in arrays.items():
@@ -86,7 +91,7 @@ def write(path: Union[str, Path], datasets: Mapping[str, np.ndarray]) -> None:
     btree_len = 24 + (2 * INTERNAL_K + 1) * 8 + 2 * INTERNAL_K * 8
     off_snod = off_btree + btree_len
     snod_len = 8 + 2 * LEAF_K * 40
-    cursor = off_snod + snod_len
+    cursor = off_snod + snod_len * len(leaves)
 
     headers, data_off = {}, {}
     for n in names:
@@ -108,20 +113,25 @@ def write(path: Union[str, Path], datasets: Mapping[str, np.ndarray]) -> None:
                            (MSG_NIL, 0, b"\0" * 8)])
     heap = b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data),
                                  HEAP_FREE_NULL, off_heap_data)
-    btree = (b"TREE" + struct.pack("<BBHQQ", 0, 0, 1, UNDEF, UNDEF)
-             + struct.pack("<QQQ", 0, off_snod, name_off[names[-1]])
-             if names else
-             b"TREE" + struct.pack("<BBHQQ", 0, 0, 0, UNDEF, UNDEF))
+    # keys: the empty name, then each child's last (largest) name
+    btree = b"TREE" + struct.pack("<BBHQQ", 0, 0, len(names) and len(leaves),
+                                  UNDEF, UNDEF) + struct.pack("<Q", 0)
+    if names:
+        for k, leaf in enumerate(leaves):
+            btree += struct.pack("<QQ", off_snod + k * snod_len,
+                                 name_off[leaf[-1]])
     btree += b"\0" * (btree_len - len(btree))
-    snod = b"SNOD" + struct.pack("<BBH", 1, 0, len(names))
-    for n in names:
-        snod += struct.pack("<QQI4x16x", name_off[n], headers[n], 0)
-    snod += b"\0" * (snod_len - len(snod))
+    snods = b""
+    for leaf in leaves:
+        snod = b"SNOD" + struct.pack("<BBH", 1, 0, len(leaf))
+        for n in leaf:
+            snod += struct.pack("<QQI4x16x", name_off[n], headers[n], 0)
+        snods += snod + b"\0" * (snod_len - len(snod))
 
     with open(path, "wb") as f:
         f.write(superblock)
         assert f.tell() == off_root
-        f.write(root + heap + heap_data + btree + snod)
+        f.write(root + heap + heap_data + btree + snods)
         for n in names:
             a = arrays[n]
             assert f.tell() == headers[n]

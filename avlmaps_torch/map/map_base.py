@@ -150,12 +150,14 @@ class Map:
         raise NotImplementedError
 
     @staticmethod
-    def create(map_config: MapConfig) -> "Map":
-        """Factory (reference map.py:121-144)."""
+    def create(map_config: MapConfig,
+               device: Union[str, torch.device] = "cuda") -> "Map":
+        """Factory (reference map.py:121-144); the map runs its queries on
+        ``device`` (default ``"cuda"``; raises without a card)."""
         from avlmaps_torch.map.vlmap import VLMap
 
         if map_config.map_type in ("vlmap", "vlmap_openmap"):
-            return VLMap(map_config)
+            return VLMap(map_config, device=device)
         raise ValueError(f"unknown map_type {map_config.map_type!r}")
 
     # -- obstacle maps ------------------------------------------------------

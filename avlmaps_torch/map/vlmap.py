@@ -120,7 +120,7 @@ class OpenVocabIndexMixin:
     def index_map_sharded(self, mesh, language_desc: str) -> np.ndarray:
         raise NotImplementedError(
             "row-sharded multi-device indexing is not ported yet "
-            "(ROADMAP.md, Queue 1 item 17)")
+            "(ROADMAP.md, Queue 1 item 11)")
 
 
 class VLMap(OpenVocabIndexMixin, Map):

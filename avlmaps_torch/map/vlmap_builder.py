@@ -354,7 +354,8 @@ class VLMapBuilder:
         self.device = resolve_device(device)
         if mesh is not None:
             raise NotImplementedError(
-                "multi-device (mesh) builds are not ported yet")
+                "multi-device (mesh) builds are not ported yet "
+                "(ROADMAP.md, Queue 1 item 11)")
         self.transport = transport if transport is not None else \
             getattr(map_config, "transport", "canvas")
         if self.transport not in ("canvas", "frame"):

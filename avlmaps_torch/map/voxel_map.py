@@ -107,6 +107,17 @@ class SparseVoxelMap:
     def num_occupied(self) -> int:
         return int(self.grid_feat.shape[0])
 
+    @classmethod
+    def empty(cls, gs: int, vh: int, feat_dim: int) -> "SparseVoxelMap":
+        return cls(
+            gs=gs, vh=vh, feat_dim=feat_dim,
+            grid_feat=np.zeros((0, feat_dim), np.float32),
+            grid_pos=np.zeros((0, 3), np.int32),
+            weight=np.zeros((0,), np.float32),
+            occupied_ids=-np.ones((gs, gs, vh), np.int32),
+            grid_rgb=np.zeros((0, 3), np.uint8),
+        )
+
     def save(self, path: Union[str, Path]) -> None:
         save_3d_map(path, self.grid_feat, self.grid_pos, self.weight,
                     self.occupied_ids, self.mapped_iters, self.grid_rgb)
@@ -122,3 +133,23 @@ class SparseVoxelMap:
                    occupied_ids=occupied_ids, grid_rgb=grid_rgb,
                    mapped_iters=set(int(i) for i in mapped_iter_list))
 
+    # -- 2D projections -----------------------------------------------------
+
+    def top_down_height(self) -> np.ndarray:
+        """Per-(row, col) max occupied height, -1 where empty."""
+        hmax = np.full((self.gs, self.gs), -1, np.int32)
+        if self.num_occupied:
+            np.maximum.at(hmax, (self.grid_pos[:, 0], self.grid_pos[:, 1]),
+                          self.grid_pos[:, 2])
+        return hmax
+
+    def obstacle_map(self, h_min: float = 0.0, h_max: float = 1.5,
+                     cs: float = 0.05) -> np.ndarray:
+        """(gs, gs) uint8 map, 1 = free, 0 = occupied in [h_min, h_max]
+        (reference Map.generate_obstacle_map, map/map.py:79-95: counts voxels
+        with slot id > 0 in the height band -- the reference's ``> 0`` also
+        skips slot 0, and so does this)."""
+        heights = np.arange(self.vh) * cs
+        band = (heights > h_min) & (heights < h_max)
+        occ = (self.occupied_ids[..., band] > 0).sum(axis=2)
+        return (occ == 0).astype(np.uint8)

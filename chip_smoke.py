@@ -108,7 +108,36 @@
    (cosine >= 0.9999).  Every f32 model runs with TF32 switched on
    outside and asserted off inside its forward.  Prints whether OpenCV
    is installed and the phase's wall seconds.
-8. Prints the kernel table as one JSON line, then the card line, and last
+8. Slice 9, the multi-floor build and the robot.  After slice 3, while
+   the ViT-L/16 net lives: 32 720x1080 frames with global camera poses
+   on two floors 3 m apart (16 a floor) built by
+   ``VLMapBuilderMultiFloor`` at batch 8 (16 crops, M = 14,416; 4
+   steps; the full sliding-window canvas; K4 once a step); its
+   ``probe_bounds`` against a numpy f64 recomputation (1e-5 m); launches
+   (K1-K3 24 a forward, K4 once a step, K5 never); host and device ms a
+   step and the idle share (a profiled second build); the HDF5 file
+   through ``VLMapMultiFloor.load_map``; the same scene built on the
+   card and on the CPU with a stand-in network (a seeded f32 1x1
+   projection of the RGB to 512 channels): the same voxels
+   and slots, weights within rtol 1e-5, features within 1e-5 + 1e-5 x
+   |CPU|, and the ViT-L build's voxels equal to the stand-in's; K1, K3
+   and K2 at M = 14,416 / (16, 16, 901, 64) against their plain
+   versions with times, bounds and library times.  After slice 8:
+   ``VLMapMultiFloor.index_map('chair')`` through K7 against the CPU on
+   clear rows; ``HabitatLanguageRobot`` with the kinematic simulator on
+   the slice-1 scene laid out as ``vlmaps_dataset/<scene>``, on the card
+   and on the CPU (whose text features are the card's: the text tower
+   is held to the CPU in slice 2) from the same start: ``setup_scene``
+   (K8 at C = 41, the customised obstacle map with K7, the native
+   visgraph of the gs = 1000 crop), ``move_to_object`` of 'chair' and of
+   the category labelling the most voxels (the same target, reachable
+   goal and actions; the last action 'stop' within 3 cells of the
+   goal), ``get_map_3d`` (atol 1e-5), and ``get_max_pos_3d_fused`` of an
+   object and a sound heat on the card under
+   ``set_sync_debug_mode("error")`` up to its fetch, against the host
+   argmax; then the CLIs ``index_map`` and ``generate_obstacle_map``
+   in-process.  Every row of the kernel table gets ``slice9_launches``.
+9. Prints the kernel table as one JSON line, then the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no result line.
@@ -638,7 +667,8 @@ class PositionGate:
     slots merged into one -- reads past the grid, as a column of 1035 once
     did on the 1000-wide grid.
 
-    Installed over the builder's ``fuse_points`` and ``_save``: each
+    Installed over the ``fuse_points`` and ``_save`` of both builders
+    (``VLMapBuilder`` and ``VLMapBuilderMultiFloor``): each
     fusion step records on the card, with no host sync, how many used
     slots lie outside and the first of them; each save checks those
     records and the final state before the export, and fails with the
@@ -646,23 +676,30 @@ class PositionGate:
 
     def __init__(self):
         from avlmaps_torch.map import vlmap_builder as vb
+        from avlmaps_torch.map import vlmap_builder_multi_floor as mf
 
         self.steps, self.record = [], True
         self.n_builds = self.n_steps = 0
-        fuse, save = vb.fuse_points, vb.VLMapBuilder._save
+        for module, cls in ((vb, vb.VLMapBuilder),
+                            (mf, mf.VLMapBuilderMultiFloor)):
+            module.fuse_points = self._checked_fuse(module.fuse_points)
+            cls._save = self._checked_save(cls._save)
 
+    def _checked_fuse(self, fuse):
         def fuse_checked(state, *args, **kw):
             out = fuse(state, *args, **kw)
             if self.record:
                 self.steps.append(self.outside(out, kw["gs"], kw["vh"]))
             return out
 
+        return fuse_checked
+
+    def _checked_save(self, save):
         def save_checked(builder, state, gs, vh, mapped):
             self.check(state, gs, vh)
             return save(builder, state, gs, vh, mapped)
 
-        vb.fuse_points = fuse_checked
-        vb.VLMapBuilder._save = save_checked
+        return save_checked
 
     @staticmethod
     def outside(state, gs: int, vh: int):
@@ -2620,6 +2657,554 @@ def image_query_run(enc, scene: Path, tmp: Path, vit_rows, score_rows):
     return shape_rows
 
 
+# slice 9: the multi-floor build (32 720x1080 frames with global camera
+# poses on two floors 3 m apart, 16 a floor; batch 8 = 16 crops a step, 4
+# steps) and the robot on the slice-1 map
+MF_FRAMES = 32
+MF_FLOOR_GAP = 3.0
+MF_BATCH = 8
+MF_M = MF_BATCH * CROPS * T  # 14,416 token rows a forward
+MF_PROBE_STRIDE = 50  # probe_bounds' default: every 5th frame, 50th point
+MF_FEAT_TOL = 1e-5  # |d| <= tol + tol * |CPU| for the stand-in features
+
+
+def write_two_floor_scene(root: Path, seed: int = 5) -> list:
+    """write_scene's frames with global camera poses (habitat axes, y up,
+    camera 1.5 m above its floor): 16 frames a floor, the second floor
+    3 m above the first, each floor's walk 5 cm forward and 2 deg of yaw
+    a frame.  Returns the 4x4 poses."""
+    from avlmaps_torch.geometry.transforms import pose_vec_to_tf
+
+    write_scene(root, MF_FRAMES, seed)
+    tfs = []
+    for i in range(MF_FRAMES):
+        floor, k = divmod(i, MF_FRAMES // 2)
+        th = np.deg2rad(2.0 * k)
+        tfs.append(pose_vec_to_tf(np.array(
+            [0.05 * k, 1.5 + MF_FLOOR_GAP * floor, -0.05 * k, 0.0,
+             np.sin(th / 2), 0.0, np.cos(th / 2)])))
+    return tfs
+
+
+def probe_bounds_f64(mc, depth_paths, cam_tfs, stride: int,
+                     margin: float = 1.0):
+    """probe_bounds recomputed in numpy f64 throughout (the builder
+    backprojects in f32): the same frames and points."""
+    inv = np.linalg.inv(mc.calib_matrix())
+    mins, maxs = np.full(3, np.inf), np.full(3, -np.inf)
+    for i in range(0, len(depth_paths), max(1, stride // 10)):
+        d = np.load(depth_paths[i]).astype(np.float64)
+        h, w = d.shape
+        ys, xs = np.mgrid[0:h, 0:w] + 0.5
+        uv1 = np.stack([xs.ravel(), ys.ravel(), np.ones(h * w)], 1)
+        pc = (uv1 @ inv.T) * d.reshape(-1, 1)
+        z = pc[:, 2]
+        pc = pc[(z > mc.min_depth) & (z < 10.0)][::stride]
+        tf = cam_tfs[i]
+        pg = pc @ tf[:3, :3].T + tf[:3, 3]
+        mins, maxs = np.minimum(mins, pg.min(0)), np.maximum(maxs, pg.max(0))
+    pad = np.array([0.0, margin, 0.0])
+    return mins - pad, maxs + pad
+
+
+def standin_apply(device):
+    """A fixed seeded 1x1 projection of the RGB to 512 channels in f32,
+    built in place in one output tensor (the CPU's cost is its memory
+    passes)."""
+    import torch
+
+    g = torch.Generator()
+    g.manual_seed(9)
+    p = torch.randn(3, FEAT, generator=g).to(device)
+
+    def apply(x):
+        out = x[..., 0:1] * p[0]
+        out.addcmul_(x[..., 1:2], p[1])
+        return out.addcmul_(x[..., 2:3], p[2])
+
+    return apply
+
+
+def multi_floor_run(net, tmp: Path, rows, k5_row, vit_rows):
+    """Slice 9's build: ``VLMapBuilderMultiFloor`` with the ViT-L/16 LSeg
+    on the card (K1-K4, the full sliding-window canvas), its bounds, its
+    voxels against a stand-in build on the card and on the CPU, the HDF5
+    round trip through ``VLMapMultiFloor.load_map``, and K1-K3 at the
+    build's shapes.  Sets each row's ``slice9_launches`` to the build's
+    count; returns the scene, the build's rows at the new shapes and the
+    checks."""
+    import torch
+
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.vlmap_builder_multi_floor import (
+        HABITAT2CAM_ROT, VLMapBuilderMultiFloor, VLMapMultiFloor)
+
+    t_phase = time.perf_counter()
+    checks = {}
+    scene = tmp / "two_floors"
+    tfs = write_two_floor_scene(scene)
+    rgb = sorted((scene / "rgb").glob("*.png"))
+    depth = sorted((scene / "depth").glob("*.npy"))
+    mc = load_config().map_config  # cs 0.05, capacity 1e6, 7776 points
+    assert mc.cell_size == 0.05 and mc.capacity == CAPACITY
+
+    def builder(apply, device, out=None):
+        b = VLMapBuilderMultiFloor(scene, mc, rgb, depth, tfs,
+                                   lseg_apply=apply, feat_dim=FEAT,
+                                   batch_size=MF_BATCH, seed=0,
+                                   device=device)
+        if out is not None:  # keep the ViT-L build's file in the scene
+            b.map_save_dir = tmp / out
+            b.map_save_path = b.map_save_dir / "vlmaps_multi_floor.h5df"
+        return b
+
+    # bounds: the probe (f32 points, f64 pose) against numpy f64
+    b = builder(net, "cuda")
+    lo, hi = b.probe_bounds(sample_stride=MF_PROBE_STRIDE)
+    lo64, hi64 = probe_bounds_f64(mc, depth, [np.asarray(t) @ HABITAT2CAM_ROT
+                                             for t in tfs], MF_PROBE_STRIDE)
+    d_probe = float(max(np.abs(lo - lo64).max(), np.abs(hi - hi64).max()))
+    gs, vh, n_rows, n_cols = b.grid_dims()
+    print(f"  probe_bounds: pcd_min {np.round(lo, 4).tolist()} pcd_max "
+          f"{np.round(hi, 4).tolist()}; max |d| against numpy f64 "
+          f"{d_probe:.2e} m; grid {n_rows} x {n_cols} x {vh} -> gs {gs}")
+    checks["probe_bounds == numpy f64 recomputation (1e-5 m)"] = \
+        d_probe <= 1e-5
+    checks["two floors 3 m apart widen the height range past 3 m"] = \
+        hi[1] - lo[1] > MF_FLOOR_GAP
+
+    # the ViT-L build, the main path: K1-K3 24 a forward, K4 once a step
+    checks["TF32 off for matmul and cuDNN"] = not (
+        torch.backends.cuda.matmul.allow_tf32
+        or torch.backends.cudnn.allow_tf32)
+    counted = rows[:4] + [k5_row] + vit_rows
+    for r in counted:
+        r["fn"].launches = 0
+    # split the wall: the host's waits for the loader's next batch, and
+    # the export + HDF5 save after the last step's device work
+    waits, saves = [], []
+    make_loader, save = b._make_loader, b._save
+
+    def timed_loader(*args):
+        it = iter(make_loader(*args))
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                waits.append(time.perf_counter() - t)
+            yield batch
+
+    def timed_save(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            return save(*args)
+        finally:
+            saves.append(time.perf_counter() - t)
+
+    b._make_loader, b._save = timed_loader, timed_save
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vit = b.create_global_map(progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    save_s, wait_s = sum(saves), sum(waits)
+    for r in counted:
+        r["slice9_launches"] = r["fn"].launches
+    steps = math.ceil(MF_FRAMES / MF_BATCH)
+    launches = {r["name"]: r["slice9_launches"] for r in counted}
+    want = {"ln_matmul": LAYERS * steps, "mha_oneshot_2d": LAYERS * steps,
+            "ln_mlp_residual": LAYERS * steps,
+            "sorted_segment_scatter_add_split": steps,
+            "sorted_segment_scatter_add": 0, "gelu_matmul": 0,
+            "mha_bhtd": 0}
+    print(f"  ViT-L build: {MF_FRAMES} frames in {wall:.2f} s "
+          f"({MF_FRAMES / wall:.2f} frames/s incl. export and save), "
+          f"{len(vit[0])} voxels; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {launches}")
+    checks["launches: K1-K3 24 a forward, K4 once a step, K5 none"] = \
+        all(launches.get(k) == v for k, v in want.items())
+    with GATE.paused(), torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        builder(net, "cuda", out="mf_profiled").create_global_map(
+            progress=False)
+        torch.cuda.synchronize()
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.key.startswith(BUILD_RANGES)
+                 and "DtoH" not in e.key) / 1e3 / steps
+    host_ms = 1e3 * (wall - save_s) / steps
+    print(f"  per step: host {host_ms:.1f} ms (the measured build's fusion "
+          f"loop, up to the end of its last step's device work), of which "
+          f"{1e3 * wait_s / steps:.1f} ms waiting for the loader's next "
+          f"batch; device {dev_ms:.1f} ms (a profiled build of the same "
+          f"frames); idle share of the loop {1 - dev_ms / host_ms:.3f}; "
+          f"export + HDF5 save {1e3 * save_s:.1f} ms once "
+          f"({save_s / wall:.3f} of the wall)")
+
+    # the HDF5 file through VLMapMultiFloor.load_map
+    m = VLMapMultiFloor(mc, device="cuda")
+    ok = m.load_map(scene) and all(
+        np.array_equal(getattr(m, k), v) for k, v in zip(
+            ("grid_feat", "grid_pos", "weight", "occupied_ids", "grid_rgb"),
+            vit)) and np.array_equal(m.pcd_min, lo) \
+        and np.array_equal(m.pcd_max, hi) and m.cs == mc.cell_size \
+        and m.mapped_iter_list == list(range(MF_FRAMES))
+    checks["HDF5 round trip through VLMapMultiFloor.load_map"] = ok
+    pos = vit[1]
+    checks["grid_pos inside the probed grid, features finite"] = bool(
+        pos.min() >= 0 and pos[:, 0].max() < gs and pos[:, 1].max() < gs
+        and pos[:, 2].max() < vh and np.isfinite(vit[0]).all())
+
+    # the geometry against the CPU: a stand-in network on both
+    t0 = time.perf_counter()
+    card = builder(standin_apply("cuda"), "cuda", out="mf_standin_card")
+    card.pcd_min, card.pcd_max = lo, hi
+    sc = card.create_global_map(progress=False)
+    cpu = builder(standin_apply("cpu"), "cpu", out="mf_standin_cpu")
+    cpu.pcd_min, cpu.pcd_max = lo, hi
+    sp = cpu.create_global_map(progress=False)
+    d_feat = float(np.abs(sc[0] - sp[0]).max())
+    rel_w = float((np.abs(sc[2] - sp[2]) / sp[2]).max())
+    print(f"  stand-in builds (card, CPU): {len(sc[0])} and {len(sp[0])} "
+          f"voxels; max |feat d| {d_feat:.3e}; max weight rel d "
+          f"{rel_w:.3e}; {time.perf_counter() - t0:.1f} s")
+    checks["stand-in: grid_pos, occupied_ids card == CPU"] = \
+        np.array_equal(sc[1], sp[1]) and np.array_equal(sc[3], sp[3])
+    checks["stand-in: weight card == CPU (rtol 1e-5)"] = rel_w <= 1e-5
+    checks[f"stand-in: features card == CPU ({MF_FEAT_TOL:g} + "
+           f"{MF_FEAT_TOL:g} x |CPU|)"] = bool(
+        (np.abs(sc[0] - sp[0]) <= MF_FEAT_TOL
+         + MF_FEAT_TOL * np.abs(sp[0])).all())
+    checks["ViT-L voxels == stand-in voxels"] = \
+        np.array_equal(vit[1], sc[1]) and np.array_equal(vit[3], sc[3])
+    del sc, sp, card, cpu
+
+    # K1-K3 at the build's shapes against their plain versions
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    shape_rows = [k1_case(g, MF_M, 3 * WIDTH), k3_case(g, MF_M),
+                  k2_case(g, MF_BATCH * CROPS, T)[0]]
+    for r in shape_rows:
+        r["launches"] = launches[r["name"]]
+        r["shape"] = (f"({MF_BATCH * CROPS}, {HEADS}, {T}, 64)"
+                      if r["name"] == "mha_oneshot_2d" else f"M={MF_M}")
+        print(f"  {r['name']} {r['shape']}: {_times(r)}, {r['launches']} "
+              "launches in the multi-floor build")
+    torch.cuda.empty_cache()
+    print(f"  slice 9 build phase: {time.perf_counter() - t_phase:.1f} s "
+          "wall")
+    return scene, shape_rows, checks
+
+
+@contextlib.contextmanager
+def _clip_of(encoder):
+    """Every VLMap made inside takes ``encoder`` as its CLIP."""
+    from avlmaps_torch.map.vlmap import VLMap
+
+    original = VLMap._init_clip
+
+    def patched(self, clip_version="ViT-B/32"):
+        self.clip_encoder = encoder
+        return encoder
+
+    VLMap._init_clip = patched
+    try:
+        yield
+    finally:
+        VLMap._init_clip = original
+
+
+def _free_cells(robot):
+    """The free cells of the planner's obstacle map (the customised
+    crop) nearest its centre and farthest from that, on the full map."""
+    dl = robot.vlmaps_dataloader
+    free = np.argwhere(robot.nav.obs_map == 1)
+    d2 = ((free - np.array(robot.nav.obs_map.shape) / 2) ** 2).sum(1)
+    near = free[int(np.argmin(d2))]
+    far = free[int(np.argmax(((free - near) ** 2).sum(1)))]
+    return [(int(r + dl.rmin), int(c + dl.cmin)) for r, c in (near, far)]
+
+
+def program(top: str, second: str) -> str:
+    """The short ``robot.*`` program the smoke runs through
+    ``execute_code``."""
+    return (f"robot.move_to_object({second!r})\nrobot.turn(90)\n"
+            f"robot.move_forward(1.0)\nrobot.face({top!r})\n")
+
+
+def robot_run(enc, scene: Path, mf_scene: Path, tmp: Path, score_rows,
+              checks: dict):
+    """Slice 9's robot on the slice-1 map: ``HabitatLanguageRobot`` with
+    the kinematic simulator on the card and on the CPU from the same
+    start, ``setup_scene`` (K8 at C = 41, the customised obstacle map with
+    K7, the native visgraph of the gs = 1000 crop), ``move_to_object``,
+    ``get_map_3d``, ``execute_code``, the fused goal pick with no host
+    sync, and ``VLMapMultiFloor.index_map`` (K7) and ``get_pos`` (K8) on
+    the multi-floor map against the CPU; then the port's CLIs in-process.
+    ``score_rows`` (K7, K8) get their slice-9 counts added."""
+    import os
+
+    import torch
+
+    from avlmaps_torch.application import generate_obstacle_map as cli_obs
+    from avlmaps_torch.application import index_map as cli_index
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.vlmap_builder_multi_floor import VLMapMultiFloor
+    from avlmaps_torch.models.clip import ClipEncoder
+    from avlmaps_torch.nav.visgraph import VisGraph
+    from avlmaps_torch.ops import delivery as dlv
+    from avlmaps_torch.ops import similarity as sim
+    from avlmaps_torch.ops.heatmap import heatmap_from_mask_3d
+    from avlmaps_torch.robot import HabitatLanguageRobot, KinematicSimulator
+    from avlmaps_torch.utils.categories import mp3dcat
+
+    t_phase = time.perf_counter()
+    cpu_enc = ClipEncoder.from_config(enc.cfg, params=_cpu_state(enc.model),
+                                      device="cpu")
+    # the CPU robot scores the card's text features, moved to the host
+    # (the text tower itself is held to the CPU in slice 2)
+    cpu_enc._landmark_feats = lambda names, multiple, avg: \
+        enc._landmark_feats(names, multiple, avg).cpu()
+    for r in score_rows:
+        r["fn"].launches = 0
+
+    # VLMapMultiFloor.index_map (K7) on the multi-floor map, card vs CPU
+    mc = load_config().map_config
+    mf = VLMapMultiFloor(mc, clip_encoder=enc, device="cuda")
+    mf_cpu = VLMapMultiFloor(mc, clip_encoder=cpu_enc, device="cpu")
+    assert mf.load_map(mf_scene) and mf_cpu.load_map(mf_scene)
+    k7 = sim.score_argmax.launches
+    mask = mf.index_map("chair", with_init_cat=False)
+    k7 = sim.score_argmax.launches - k7
+    want = mf_cpu.index_map("chair", with_init_cat=False)
+    text = cpu_enc._landmark_feats(["chair", "other"], True, 0)
+    ref = sim.score_features_ref(torch.from_numpy(mf.grid_feat), text)
+    clear = _clear_rows(ref).numpy()
+    print(f"  VLMapMultiFloor.index_map('chair'): {int(mask.sum())} of "
+          f"{len(mask)} voxels (K7 {k7}x); {int((~clear).sum())} near ties; "
+          f"{int((mask != want).sum())} differ from the CPU path")
+    checks["multi-floor index_map by K7 == CPU on clear rows"] = \
+        k7 == 1 and np.array_equal(mask[clear], want[clear])
+
+    # VLMapMultiFloor.get_pos (K8 at C = 41, the pooling along y-up) of
+    # the most frequent category that no near-tie row holds in its top two
+    k8 = sim.score_features.launches
+    mf.init_categories(mp3dcat)
+    k8 = sim.score_features.launches - k8
+    mf_cpu.init_categories(mp3dcat)
+    s_cpu = np.sort(mf_cpu.scores_mat, axis=1)
+    tie = s_cpu[:, -1] - s_cpu[:, -2] <= 1e-5 * np.abs(s_cpu[:, -1])
+    tied = set(np.argsort(mf_cpu.scores_mat[tie], axis=1)[:, -2:].ravel())
+    counts = np.bincount(np.argmax(mf.scores_mat, axis=1),
+                         minlength=len(mp3dcat) + 1)[:len(mp3dcat)]
+    name = next((mp3dcat[i] for i in np.argsort(-counts, kind="stable")
+                 if counts[i] and i not in tied), None)
+    if name is None:
+        raise AssertionError("slice 9: every labelled category of the "
+                             "multi-floor map is in a near tie")
+    t0 = time.perf_counter()
+    got = mf.get_pos(name)
+    pos_ms = 1e3 * (time.perf_counter() - t0)
+    want = mf_cpu.get_pos(name)
+    same = all(len(a) == len(b) and all(
+        np.array_equal(np.asarray(u), np.asarray(v)) for u, v in zip(a, b))
+        for a, b in zip(got, want))
+    print(f"  VLMapMultiFloor.get_pos({name!r}) after init_categories "
+          f"(K8 {k8}x at C = {len(mp3dcat) + 1}; {int(tie.sum())} near-tie "
+          f"rows): {len(got[1])} islands, {pos_ms:.1f} ms on the host "
+          f"clock; card == CPU: {same}")
+    checks["multi-floor get_pos (K8, pooling) == CPU, islands found"] = \
+        k8 == 1 and same and len(got[1]) > 0
+
+    # the robot on the slice-1 map, laid out as vlmaps_dataset/<scene>
+    root = tmp / "robot"
+    (root / "vlmaps_dataset").mkdir(parents=True)
+    os.symlink(scene, root / "vlmaps_dataset" / scene.name)
+    cfg = load_config()
+    cfg.data_paths.avlmaps_data_dir = str(root)
+    runs = {}
+    for key, dev, encoder in (("card", "cuda", enc),
+                              ("host", "cpu", cpu_enc)):
+        bot = HabitatLanguageRobot(cfg, sim=KinematicSimulator(
+            cfg.params.forward_dist, cfg.params.turn_angle), device=dev)
+        t0 = time.perf_counter()
+        with _clip_of(encoder):
+            bot.setup_scene(0)
+        setup_s = time.perf_counter() - t0
+        out = {"setup_s": setup_s, "core": bot.nav.visgraph.core,
+               "scores": bot.map.scores_mat}
+        start, far = (_free_cells(bot) if key == "card" else
+                      (runs["card"]["start"], runs["card"]["far_cell"]))
+        labels = np.argmax(bot.map.scores_mat, axis=1)
+        if key == "card":
+            # the most frequent category, and the next one whose nearest
+            # island lies more than 3 cells from the start
+            counts = np.bincount(labels, minlength=len(mp3dcat) + 1)
+            order = [mp3dcat[i] for i in
+                     np.argsort(-counts[:len(mp3dcat)], kind="stable")
+                     if counts[i]]
+            top = order[0]
+            second = next((n for n in order[1:] if math.dist(
+                bot.map.get_nearest_pos(start, n), start) > 3), None)
+            if second is None:
+                raise AssertionError("slice 9: no second category has an "
+                                     "island away from the robot's start")
+        else:
+            top, second = runs["card"]["top"], runs["card"]["second"]
+        out.update(start=start, far_cell=far, top=top, second=second)
+        for name in (second, top, "far"):
+            bot.vlmaps_dataloader.from_full_map_pose(*start, 0.0)
+            bot.set_agent_state(bot.vlmaps_dataloader.to_habitat_tf())
+            bot.empty_recorded_actions()
+            target = (far if name == "far" else
+                      bot.map.get_nearest_pos(bot.curr_pos_on_map, name))
+            # the planner clamps a target on an obstacle to the nearest
+            # free cell: the path's end is the goal the robot can reach
+            t0 = time.perf_counter()
+            path = bot.nav.plan_to(bot.curr_pos_on_map, target)
+            plan_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            if name == "far":
+                bot.move_to(target)
+            else:
+                bot.move_to_object(name)
+            move_ms = 1e3 * (time.perf_counter() - t0)
+            actions = list(bot.get_recorded_actions())
+            bot._set_nav_curr_pose()
+            out[name] = dict(target=[float(v) for v in target],
+                             goal=[float(v) for v in path[-1]],
+                             waypoints=len(path), actions=actions,
+                             end=bot.curr_pos_on_map, ms=move_ms,
+                             plan_ms=plan_ms)
+        # a short program through execute_code, from the start again
+        bot.vlmaps_dataloader.from_full_map_pose(*start, 0.0)
+        bot.set_agent_state(bot.vlmaps_dataloader.to_habitat_tf())
+        bot.empty_recorded_actions()
+        t0 = time.perf_counter()
+        bot.execute_code(program(top, second))
+        out["code"] = dict(actions=list(bot.get_recorded_actions()),
+                           ms=1e3 * (time.perf_counter() - t0))
+        bot._set_nav_curr_pose()
+        out["code"]["end"] = bot.curr_pos_on_map
+        out["heat"] = bot.get_map_3d(obj=second)
+        if key == "card":
+            nav = bot.nav
+            t0 = time.perf_counter()
+            graph = VisGraph(nav.obs_map)
+            out["graph"] = (len(graph.nodes), graph.n_edges,
+                            1e3 * (time.perf_counter() - t0), graph.core)
+            # the fused goal pick of an object and a sound heat on the
+            # card: nothing before the 12-byte fetch may wait for it
+            obj = heatmap_from_mask_3d(
+                bot.global_pc, labels == mp3dcat.index(top), cell_size=bot.cs,
+                decay_rate=0.03, as_device=True, device="cuda")
+            pts = [bot.vlmaps_dataloader.to_habitat_tf()[:3, 3]
+                   + [0.4 * i, 0.0, -0.3 * i] for i in range(3)]
+            snd_host = bot.get_distribution_map_3d(
+                "sound", np.array([0.3, 1.0, 0.6], np.float32), pts, 0.05)
+            snd = torch.from_numpy(snd_host).cuda()
+            bot.get_max_pos_3d_fused(obj, snd)  # uploads grid_pos once
+            torch.cuda.synchronize()
+            fetch = dlv.fetch_np
+
+            def fetch_after_pick(*arrays):
+                torch.cuda.set_sync_debug_mode(0)
+                return fetch(*arrays)
+
+            dlv.fetch_np = fetch_after_pick
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                picked = bot.get_max_pos_3d_fused(obj, snd)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                dlv.fetch_np = fetch
+            host = obj.cpu().numpy() * snd_host
+            out["pick"] = (picked, tuple(int(v) for v in
+                                         bot.map.grid_pos[np.argmax(host)]))
+        runs[key] = out
+        del bot
+    card, cpu = runs["card"], runs["host"]
+    top = card["top"]
+    nodes, edges, build_ms, core = card["graph"]
+    print(f"  robot setup (load, K8 at C = {len(mp3dcat) + 1}, obstacles, "
+          f"customised obstacles with K7, visgraph): card "
+          f"{card['setup_s']:.1f} s, CPU {cpu['setup_s']:.1f} s; visgraph "
+          f"({core}): {nodes} nodes, {edges} edges, built in "
+          f"{build_ms:.1f} ms")
+    second = card["second"]
+    for name in (second, top, "far"):
+        c, p = card[name], cpu[name]
+        call = ("move_to(the free cell farthest from the start)"
+                if name == "far" else f"move_to_object({name!r})")
+        print(f"  {call} from {card['start']}: target {c['target']}, "
+              f"reachable goal {c['goal']}; plan {c['plan_ms']:.2f} ms, "
+              f"{c['waypoints']} waypoints; {len(c['actions'])} actions, "
+              f"end {[round(v, 2) for v in c['end']]}, {c['ms']:.1f} ms on "
+              f"the host clock (CPU robot: goal {p['goal']}, "
+              f"{len(p['actions'])} actions)")
+        checks[f"{call}: goal and actions card == CPU"] = \
+            c["target"] == p["target"] and c["goal"] == p["goal"] \
+            and c["actions"] == p["actions"]
+        checks[f"{call}: last action 'stop', end within 3 cells of the "
+               "goal"] = (
+            c["actions"][-1] == "stop"
+            and math.hypot(c["end"][0] - c["goal"][0],
+                           c["end"][1] - c["goal"][1]) <= 3)
+    for name in (second, top):
+        checks[f"move_to_object({name!r}) moves"] = \
+            len(card[name]["actions"]) > 1
+    c, p = card["code"], cpu["code"]
+    print(f"  execute_code({program(top, second)!r}): {len(c['actions'])} "
+          f"actions, end {[round(v, 2) for v in c['end']]}, {c['ms']:.1f} ms "
+          f"on the host clock (CPU robot: {len(p['actions'])} actions)")
+    checks["execute_code: actions card == CPU, and the program moves"] = \
+        c["actions"] == p["actions"] and len(c["actions"]) > 3
+    s = np.sort(cpu["scores"], axis=1)
+    clear = s[:, -1] - s[:, -2] > 1e-5 * np.abs(s[:, -1])
+    checks["robot: K8 scores == CPU (atol 1e-4), labels on clear rows"] = (
+        float(np.abs(card["scores"] - cpu["scores"]).max()) <= 1e-4
+        and np.array_equal(np.argmax(card["scores"], 1)[clear],
+                           np.argmax(cpu["scores"], 1)[clear]))
+    checks[f"robot: get_map_3d(obj={second!r}) card == CPU (atol 1e-5), "
+           "not empty"] = (
+        float(np.abs(card["heat"] - cpu["heat"]).max()) <= 1e-5
+        and float(card["heat"].max()) > 0)
+    checks["robot: the native visgraph ran on both"] = \
+        card["core"] == cpu["core"] == core == "native"
+    picked, host = card["pick"]
+    print(f"  get_max_pos_3d_fused(object {top!r} x sound) under "
+          f"set_sync_debug_mode('error') up to the fetch: {picked}, host "
+          f"argmax {host}")
+    checks["fused goal pick: no host sync, == host argmax"] = picked == host
+
+    # the port's CLIs in-process on the robot's scene
+    out = tmp / "cli"
+    out.mkdir()
+    t0 = time.perf_counter()
+    cli_index.main(["--data-dir", str(root), "--type", "object", "--query",
+                    "chair", "--out", str(out / "heat.png"), "--device",
+                    "cuda"])
+    cli_obs.main(["--data-dir", str(root), "--out-prefix",
+                  str(out / "obstacles"), "--device", "cuda"])
+    written = sorted(p.name for p in out.iterdir())
+    print(f"  CLIs index_map (object 'chair') and generate_obstacle_map: "
+          f"{written} in {time.perf_counter() - t0:.1f} s")
+    checks["CLIs wrote their images"] = written == [
+        "heat.png", "obstacles_customized.png", "obstacles_raw.png"]
+    for r in score_rows:
+        r["slice9_launches"] = r.get("slice9_launches", 0) + \
+            r["fn"].launches
+    print(f"  K7/K8 launches in the phase: "
+          f"{[(r['name'], r['fn'].launches) for r in score_rows]}; "
+          f"{time.perf_counter() - t_phase:.1f} s wall")
+
+
 def ptxas_gate(logs) -> None:
     """Prints each kernel's registers and spill stores from ptxas, and
     ptxas's warnings; fails on a kernel that spills, or on warning C7508
@@ -2715,6 +3300,11 @@ def main() -> int:
         vit_routes_run(net, *vit_rows)
         print("slice 3: medium f32 LSeg on the card:")
         f32_lseg_check()
+        print(f"slice 9: multi-floor build, {MF_FRAMES} 720x1080 frames on "
+              f"two floors {MF_FLOOR_GAP:g} m apart, ViT-L/16 bf16, sliding, "
+              f"batch {MF_BATCH}:")
+        mf_scene, mf_rows, s9_checks = multi_floor_run(
+            net, Path(tmp), rows, k5_row, vit_rows)
         del net
         torch.cuda.empty_cache()
         print("slice 2: CLIP ViT-B/32 text tower, card vs CPU:")
@@ -2737,6 +3327,15 @@ def main() -> int:
               "on the slice-1 scene:")
         thr_rows += image_query_run(enc, scene, Path(tmp), rows[:3],
                                     rows[4:])
+        print("slice 9: VLMapMultiFloor.index_map, HabitatLanguageRobot on "
+              "the slice-1 map (card and CPU), the port's CLIs:")
+        robot_run(enc, scene, mf_scene, Path(tmp), rows[4:], s9_checks)
+        for name, ok in s9_checks.items():
+            print(f"  {'pass' if ok else 'FAIL'}: {name}")
+        if not all(s9_checks.values()):
+            raise AssertionError("slice 9: the multi-floor or robot path "
+                                 "failed")
+        thr_rows += mf_rows
     launches = {r["name"]: r["launches"] for r in rows[4:]}
     print(f"  slice 2 launches: {launches}")
     print(f"position gate: {GATE.n_builds} builds, {GATE.n_steps} fusion "
@@ -2749,6 +3348,7 @@ def main() -> int:
     extra = {"device_ms": "dev", "path": "path",
              "slice7_launches": "slice7_launches",
              "slice8_launches": "slice8_launches",
+             "slice9_launches": "slice9_launches",
              "library_device_ms": "library_dev", "runs": "runs",
              "real_step": "real_step"}
     table = [{**{k: r[k] for k in keys},

@@ -211,3 +211,49 @@ def test_slice_8_entry_points_default_to_cuda_and_raise_without_a_card(
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
+
+
+def test_slice_9_modules_are_scanned():
+    names = {p.relative_to(REPO / "avlmaps_torch").as_posix()
+             for p in PACKAGE}
+    assert {"map/vlmap_builder_multi_floor.py", "map/interactive_map.py",
+            "nav/visgraph.py", "nav/native.py", "nav/navigator.py",
+            "nav/controller.py", "robot/sim.py", "robot/lang_robot.py",
+            "robot/habitat_lang_robot.py", "task/tasks.py",
+            "utils/categories.py", "utils/category_assigner.py",
+            "utils/visualize.py", "application/create_map.py",
+            "application/generate_obstacle_map.py",
+            "application/index_map.py"} <= names
+
+
+def test_slice_9_entry_points_default_to_cuda_and_raise_without_a_card(
+        monkeypatch, tmp_path):
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.map_base import Map
+    from avlmaps_torch.map.vlmap_builder_multi_floor import (
+        VLMapBuilderMultiFloor, VLMapMultiFloor)
+    from avlmaps_torch.robot import HabitatLanguageRobot, LangRobot
+
+    _no_card(monkeypatch)
+    cfg = load_config()
+    calls = [
+        lambda: VLMapBuilderMultiFloor(tmp_path, cfg.map_config, [], [], []),
+        lambda: VLMapMultiFloor(cfg.map_config),
+        lambda: Map.create(cfg.map_config),
+        lambda: LangRobot(cfg),
+        lambda: HabitatLanguageRobot(cfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
+
+
+def test_the_port_never_writes_next_to_the_native_source():
+    """The port's visgraph library lives in its build directory; the
+    JAX package's loader writes native/visgraph.so, the port's never
+    names it."""
+    from avlmaps_torch.nav import native
+
+    assert native.library_path().parent == REPO / "avlmaps_torch" / "_build"
+    assert "visgraph.so" not in (REPO / "avlmaps_torch" / "nav"
+                                 / "native.py").read_text()

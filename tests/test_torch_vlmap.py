@@ -95,7 +95,7 @@ def test_index_map_needs_categories_first():
     vm = VLMap(_configure(load_config()).map_config, device="cpu")
     with pytest.raises(Exception, match="init_categories"):
         vm.index_map("chair")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         vm.index_map_sharded(None, "chair")
 
 
