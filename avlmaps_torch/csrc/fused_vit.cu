@@ -75,6 +75,7 @@
 #include <string.h>
 #include <math.h>
 
+#include <atomic>
 #include <mutex>
 
 typedef __nv_bfloat16 bf16;
@@ -1038,19 +1039,34 @@ int sm_count() {
   return n;
 }
 
+// The shared-memory attribute of wgmma_gemm_kernel<EPI, TBN>, set once
+// on each card: cudaFuncSetAttribute acts on the current device only, and
+// one process may drive several cards (parallel/sharded.py).
+template <int EPI, int TBN>
+cudaError_t gemm_smem_attr(int smem) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> set[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && set[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  e = cudaFuncSetAttribute(wgmma_gemm_kernel<EPI, TBN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && dev < kMaxDevices)
+    set[dev].store(true, std::memory_order_release);
+  return e;
+}
+
 // One launch of wgmma_gemm_kernel<EPI, TBN>, one block per SM (or per
-// tile, if fewer).  The shared-memory attribute is set once per
-// instantiation (a thread-safe static; the port drives one card); the two
-// tensor maps come from the map cache.
+// tile, if fewer); the two tensor maps come from the map cache.
 template <int EPI, int TBN>
 cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const float* bias,
                             const bf16* resid, bf16* out, int M, int N,
                             int K, cudaStream_t stream) {
   auto kern = wgmma_gemm_kernel<EPI, TBN>;
   constexpr size_t smem = wg_gemm_smem<EPI, TBN>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaError_t attr = gemm_smem_attr<EPI, TBN>(static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   if (M == 0) return cudaSuccess;
   CUtensorMap ta, tb, tc{};

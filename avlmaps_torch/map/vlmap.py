@@ -26,14 +26,28 @@ from avlmaps_torch.utils.category_matching import find_similar_category_id
 from avlmaps_torch.utils.device import resolve_device, to_device
 
 
-def load_lseg_params(path: str):
-    """LSeg weights from the reference's ``.ckpt``/``.pt`` as this
-    package's state_dict.  Pre-ported ``.msgpack`` files need flax and
-    are read by the JAX package only."""
+def load_lseg_params(path: str, net=None):
+    """LSeg weights as this package's state_dict, from the reference's
+    ``.ckpt``/``.pt`` or a pre-ported ``.msgpack`` (the JAX package's
+    variables, tools/port_checkpoints.py output; read by
+    ``utils.msgpack``).  Given the ``net`` they are for, a ``.msgpack``
+    that lacks any of its parameters raises ``ValueError`` naming them, as
+    flax's ``from_bytes`` does against its template, and parameters the
+    net does not have are left out."""
     if str(path).endswith(".msgpack"):
-        raise NotImplementedError(
-            "pre-ported .msgpack LSeg weights need flax; the port reads the "
-            "reference .ckpt (ROADMAP.md, Queue 1)")
+        from avlmaps_torch.models.lseg.port import params_from_flax
+        from avlmaps_torch.utils import msgpack
+
+        params = params_from_flax(msgpack.load(path))
+        if net is None:
+            return params
+        want = net.state_dict().keys()
+        missing = sorted(set(want) - params.keys())
+        if missing:
+            raise ValueError(
+                f"{path} lacks {len(missing)} parameters of the LSeg net, "
+                f"e.g. {missing[:5]}")
+        return {k: params[k] for k in want}
     from avlmaps_torch.models.lseg.port import load_lseg_checkpoint
 
     return load_lseg_checkpoint(str(path))
@@ -118,9 +132,20 @@ class OpenVocabIndexMixin:
         return query
 
     def index_map_sharded(self, mesh, language_desc: str) -> np.ndarray:
-        raise NotImplementedError(
-            "row-sharded multi-device indexing is not ported yet "
-            "(ROADMAP.md, Queue 1 item 11)")
+        """Multi-device open-vocabulary indexing: ``grid_feat`` row-sharded
+        over the mesh, K7 on each shard with no collective
+        (parallel.sharded.sharded_score_argmax).  The mask of
+        :meth:`index_map` with ``with_init_cat=False``: the raw
+        template-mean text, its per-category norms part of the reference's
+        scoring, so neither side is normalised."""
+        from avlmaps_torch.parallel.sharded import sharded_score_argmax
+
+        enc = self._init_clip()
+        text = enc.get_text_feats_multiple_templates([language_desc, "other"])
+        labels = sharded_score_argmax(
+            mesh, self.grid_feat.reshape(-1, self.grid_feat.shape[-1]),
+            np.asarray(text), normalize_map=False, normalize_text=False)
+        return labels == 0
 
 
 class VLMap(OpenVocabIndexMixin, Map):
@@ -170,7 +195,7 @@ class VLMap(OpenVocabIndexMixin, Map):
             cfg = getattr(LSegConfig, arch)(dtype)
             net = LSegNet(cfg, device=self.device)
             if self.lseg_ckpt:
-                params = load_lseg_params(self.lseg_ckpt)
+                params = load_lseg_params(self.lseg_ckpt, net)
             else:
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(0)

@@ -19,9 +19,9 @@ build of the JAX package is here:
   (``make_frame_step_device_sampled``, utils/threefry.py): no per-point
   host work;
 - ``transport="frame"``: full uint8 frames, resized on the card
-  (``make_frame_step``), pixels drawn on the host.
-
-``mesh=`` (the multi-device build) raises ``NotImplementedError``.
+  (``make_frame_step``), pixels drawn on the host;
+- ``mesh=`` (parallel/sharded.py): frames data-parallel over the mesh's
+  shards, the grid row-sharded, pixels drawn on the host.
 """
 
 from __future__ import annotations
@@ -97,24 +97,41 @@ def make_unproject(*, gs: int, cs: float, vh: int, calib_mat: np.ndarray,
 def make_point_geometry(*, gs: int, cs: float, vh: int,
                         calib_mat: np.ndarray, image_hw: Tuple[int, int],
                         base_size: int, crop_size: int, min_depth: float,
-                        max_depth: float,
+                        max_depth: float, n_rows: Optional[int] = None,
+                        row_offset: int = 0,
                         device: Union[str, torch.device] = "cuda"):
-    """make_unproject plus linear voxel ids.  Returns ``geometry(z,
-    sample_idx, pose) -> (vids, fx, fy, alpha, valid)`` with the ids
-    clipped into the grid (invalid points carry a clipped id).  The JAX
-    package's row-ownership options serve its sharded build, which is not
-    ported."""
+    """make_unproject plus linear voxel ids and static row ownership.
+    Returns ``geometry(z, sample_idx, pose) -> (vids, fx, fy, alpha,
+    valid)``: ids of the ``n_rows`` grid rows from ``row_offset`` on (the
+    whole grid by default), row-rebased and clipped into that range
+    (invalid points carry a clipped id), and the depth/grid/canvas/
+    ownership validity mask."""
     unproject = make_unproject(
         gs=gs, cs=cs, vh=vh, calib_mat=calib_mat, image_hw=image_hw,
         base_size=base_size, crop_size=crop_size, min_depth=min_depth,
         max_depth=max_depth, device=device)
+    rows = gs if n_rows is None else n_rows
 
     def geometry(z, sample_idx, pose):
         gid, fx, fy, alpha, valid = unproject(z, sample_idx, pose)
-        vids = torch.clamp(voxel_linear_id(gid, gs, vh), 0, gs * gs * vh - 1)
-        return vids, fx, fy, alpha, valid
+        vids, owned = own_rows(gid, gs=gs, vh=vh, n_rows=rows,
+                               row_offset=row_offset)
+        return vids, fx, fy, alpha, valid & owned
 
     return geometry
+
+
+def own_rows(gid: torch.Tensor, *, gs: int, vh: int, n_rows: int,
+             row_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row ownership of grid ids ``gid`` (..., 3) for the ``n_rows`` grid
+    rows from ``row_offset`` on: the row-rebased linear voxel ids, clipped
+    into that range, and the mask of the points those rows own."""
+    local_row = gid[..., 0] - row_offset
+    owned = (local_row >= 0) & (local_row < n_rows)
+    lgid = torch.cat([local_row[..., None], gid[..., 1:]], dim=-1)
+    vids = torch.clamp(voxel_linear_id(lgid, gs, vh), 0,
+                       n_rows * gs * vh - 1)
+    return vids, owned
 
 
 def _canvas_features(lseg_apply: Callable, lseg_eval: str, canvas, fx, fy,
@@ -341,6 +358,13 @@ class VLMapBuilder:
     ``scene.avpack`` (pipeline/packed.py) is read instead of the PNG/npy
     frames.  Runs on ``device`` (default ``"cuda"``; raises without a
     card).
+
+    ``mesh`` (``parallel.make_mesh``) builds on its shards instead
+    (:class:`~avlmaps_torch.parallel.ShardedFusion`): the batch is rounded
+    down to a multiple of the mesh size (at least one frame a shard),
+    ``lseg_apply`` is one callable or one per mesh entry, ``sampling=
+    "device"`` warns and samples on the host, and ``device`` is the mesh's
+    first.
     """
 
     def __init__(self, data_dir, map_config, pose_path, rgb_paths,
@@ -351,11 +375,9 @@ class VLMapBuilder:
                  transport: Optional[str] = None, packed_path=None,
                  sampling: str = "host",
                  device: Union[str, torch.device] = "cuda"):
-        self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device (mesh) builds are not ported yet "
-                "(ROADMAP.md, Queue 1 item 11)")
+        self.mesh = mesh
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
         self.transport = transport if transport is not None else \
             getattr(map_config, "transport", "canvas")
         if self.transport not in ("canvas", "frame"):
@@ -431,7 +453,30 @@ class VLMapBuilder:
 
             h, w = np.asarray(load_depth(self.depth_paths[0])).shape[:2]
         max_pts = cfg.point_budget(h, w)
+        base_size = getattr(cfg, "lseg_base_size", 520)
+        crop_size = getattr(cfg, "lseg_crop_size", 480)
+        height, width, _, _, _ = plan_windows(h, w, base_size, crop_size)
+        use_canvas = self.transport == "canvas"
+        lseg_eval = getattr(cfg, "lseg_eval", "sliding")
 
+        def sampler(b):
+            return sample_pixels(self.rng, h, w, cfg.depth_sample_rate,
+                                 max_pts, b)
+
+        if self.mesh is not None:
+            if self.sampling == "device":
+                warnings.warn(
+                    "sampling='device' is not implemented for sharded "
+                    "(mesh) builds; using the host sampler", stacklevel=3)
+            return self._create_sharded(
+                scene, pose_tfs, saved, mapped, sampler, (h, w),
+                (height, width), base_size, crop_size, lseg_eval,
+                save_every, progress)
+
+        device_sampling = use_canvas and self.sampling == "device"
+        if self.sampling == "device" and not use_canvas:
+            warnings.warn("sampling='device' needs transport='canvas'; "
+                          "using the host sampler", stacklevel=2)
         if saved is not None:
             grid_feat, grid_pos, weight, occupied_ids, grid_rgb = saved
             state = restore_fusion_state(gs, vh, cfg.capacity, grid_feat,
@@ -440,25 +485,11 @@ class VLMapBuilder:
         else:
             state = init_fusion_state(gs, vh, self.feat_dim, cfg.capacity,
                                       device=dev)
-
-        base_size = getattr(cfg, "lseg_base_size", 520)
-        crop_size = getattr(cfg, "lseg_crop_size", 480)
-        height, width, _, _, _ = plan_windows(h, w, base_size, crop_size)
-        use_canvas = self.transport == "canvas"
-        device_sampling = use_canvas and self.sampling == "device"
-        if self.sampling == "device" and not use_canvas:
-            warnings.warn("sampling='device' needs transport='canvas'; "
-                          "using the host sampler", stacklevel=2)
         common = dict(gs=gs, cs=cs, vh=vh, calib_mat=cfg.calib_matrix(),
                       image_hw=(h, w), base_size=base_size,
                       crop_size=crop_size, min_depth=cfg.min_depth,
                       max_depth=cfg.max_depth,
                       half_res_apply=self.half_res_apply, device=dev)
-        lseg_eval = getattr(cfg, "lseg_eval", "sliding")
-
-        def sampler(b):
-            return sample_pixels(self.rng, h, w, cfg.depth_sample_rate,
-                                 max_pts, b)
 
         if device_sampling:
             from avlmaps_torch.pipeline.transport import \
@@ -486,7 +517,8 @@ class VLMapBuilder:
 
         loader = self._make_loader(scene, pose_tfs, mapped, sampler,
                                    (height, width), transform, use_canvas,
-                                   device_sampling)
+                                   device_sampling, self.batch_size,
+                                   self.device)
         done = 0
         meter = RateMeter()
         with torch.no_grad():
@@ -536,17 +568,16 @@ class VLMapBuilder:
                              explicit_path=self.packed_path)
 
     def _make_loader(self, scene, pose_tfs, mapped, sampler, canvas_hw,
-                     transform, use_canvas, raw_canvas):
+                     transform, use_canvas, raw_canvas, batch_size, device):
         """PackedLoader when a matching pack exists (straight from its
         stored canvas when that has this geometry: the raw canvas and
         depth plane for device sampling, the canvas and host gathers
         otherwise), else PrefetchLoader decoding PNG/npy; batches land on
-        the device from the producer."""
+        ``device`` from the producer (None: host arrays)."""
         if scene is not None:
             from avlmaps_torch.pipeline.packed import PackedLoader
 
-            kw = dict(batch_size=self.batch_size, skip_ids=mapped,
-                      device=self.device)
+            kw = dict(batch_size=batch_size, skip_ids=mapped, device=device)
             stored = (use_canvas and scene.canvas is not None
                       and tuple(scene.canvas_hw) == tuple(canvas_hw))
             if stored and raw_canvas:
@@ -558,9 +589,78 @@ class VLMapBuilder:
         from avlmaps_torch.pipeline.loader import PrefetchLoader
 
         return PrefetchLoader(self.rgb_paths, self.depth_paths, pose_tfs,
-                              batch_size=self.batch_size, skip_ids=mapped,
+                              batch_size=batch_size, skip_ids=mapped,
                               normalize=False, transform=transform,
-                              device=self.device)
+                              device=device)
+
+    def _create_sharded(self, scene, pose_tfs, saved, mapped, sampler,
+                        image_hw, canvas_hw, base_size, crop_size, lseg_eval,
+                        save_every, progress) -> SparseVoxelMap:
+        """The multi-device build: frames data-parallel over the mesh, the
+        grid row-sharded (parallel/sharded.py).  Resumes from a saved map
+        by re-sharding its slots by row ownership and saves every
+        ``save_every`` fused frames, as the reference's periodic save
+        (avlmaps/map/vlmap_builder.py:180-183).  The loader yields host
+        arrays; each shard's block crosses to its device in the step."""
+        from avlmaps_torch.parallel.sharded import ShardedFusion
+
+        cfg = self.map_config
+        gs, vh = cfg.gs, cfg.vh
+        n_dev = self.mesh.size
+        batch = max(self.batch_size, n_dev) // n_dev * n_dev
+        use_canvas = self.transport == "canvas"
+        fusion = ShardedFusion(
+            self.mesh, gs=gs, cs=cfg.cs, vh=vh, feat_dim=self.feat_dim,
+            capacity=cfg.capacity, calib_mat=cfg.calib_matrix(),
+            image_hw=image_hw, lseg_apply=self.lseg_apply,
+            base_size=base_size, crop_size=crop_size,
+            min_depth=cfg.min_depth, max_depth=cfg.max_depth,
+            half_res_apply=self.half_res_apply, transport=self.transport,
+            lseg_eval=lseg_eval)
+        if saved is not None:
+            fusion.restore(*saved)
+
+        def save() -> SparseVoxelMap:
+            return self._write(fusion.export(), gs, vh, mapped)
+
+        transform = None
+        if use_canvas:
+            from avlmaps_torch.pipeline.transport import make_canvas_transform
+
+            transform = make_canvas_transform(sampler, canvas_hw)
+        loader = self._make_loader(scene, pose_tfs, mapped, sampler,
+                                   canvas_hw, transform, use_canvas, False,
+                                   batch, None)
+        meter = RateMeter()
+        done = 0
+        with torch.no_grad():
+            for b in loader:
+                fv = b.frame_ids >= 0
+                if use_canvas:
+                    fusion.step(b.canvas, b.z_mm, b.rgb_pts, b.pose_tf,
+                                b.sample_idx, fv)
+                else:
+                    fusion.step(b.rgb, b.depth, b.pose_tf, sampler(batch), fv)
+                n_new = int(fv.sum())
+                mapped.update(int(i) for i in b.frame_ids if i >= 0)
+                done += n_new
+                meter.update(n_new)
+                if progress:
+                    print(f"\rVLMap (sharded x{n_dev}): {done} frames",
+                          end="", flush=True)
+                if save_every and done % save_every < batch:
+                    save()
+        if progress:
+            print()
+        m = save()
+        self.build_stats = {
+            "frames": done,
+            "voxels": int(m.grid_feat.shape[0]),
+            "points_dropped": int(sum(int(st.n_dropped)
+                                      for st in fusion.states)),
+            "fps": meter.rate,
+        }
+        return m
 
     def _load_saved(self):
         """Saved map arrays + mapped frame set, or (None, empty) if fresh."""
@@ -573,8 +673,11 @@ class VLMapBuilder:
 
     def _save(self, state: VoxelFusionState, gs: int, vh: int,
               mapped) -> SparseVoxelMap:
-        grid_feat, grid_pos, weight, occupied_ids, grid_rgb = \
-            export_fusion_state(state, gs, vh)
+        return self._write(export_fusion_state(state, gs, vh), gs, vh,
+                           mapped)
+
+    def _write(self, exported, gs: int, vh: int, mapped) -> SparseVoxelMap:
+        grid_feat, grid_pos, weight, occupied_ids, grid_rgb = exported
         m = SparseVoxelMap(gs=gs, vh=vh, feat_dim=grid_feat.shape[1],
                            grid_feat=grid_feat, grid_pos=grid_pos,
                            weight=weight, occupied_ids=occupied_ids,

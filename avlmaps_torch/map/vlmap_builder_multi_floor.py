@@ -84,8 +84,13 @@ class VLMapBuilderMultiFloor:
     ``lseg_apply(images) -> features`` is the pixel-feature network at
     full crop resolution on normalised NHWC crops, e.g. ``net`` itself:
     the multi-floor step materialises the whole sliding-window canvas
-    (the JAX package's ``half_res_apply=False``).  ``mesh=`` (the
-    multi-device build) raises ``NotImplementedError``."""
+    (the JAX package's ``half_res_apply=False``).
+
+    ``mesh`` (``parallel.make_mesh``) builds on its shards instead: gs is
+    padded up to a multiple of the mesh size while validity stays bounded
+    by the probed extent, so the sharded build fuses the single-device
+    build's points; ``lseg_apply`` is one callable or one per mesh entry,
+    and ``device`` is the mesh's first."""
 
     def __init__(self, data_dir, map_config, rgb_paths: Sequence,
                  depth_paths: Sequence, pose_tfs: Sequence[np.ndarray],
@@ -93,11 +98,9 @@ class VLMapBuilderMultiFloor:
                  batch_size: int = 8, height_margin_m: float = 1.0,
                  seed: int = 0, mesh=None,
                  device: Union[str, torch.device] = "cuda"):
-        self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device (mesh) builds are not ported yet "
-                "(ROADMAP.md, Queue 1 item 11)")
+        self.mesh = mesh
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
         self.data_dir = Path(data_dir)
         self.map_config = map_config
         self.rgb_paths = list(rgb_paths)
@@ -115,10 +118,10 @@ class VLMapBuilderMultiFloor:
         self.pcd_min: Optional[np.ndarray] = None
         self.pcd_max: Optional[np.ndarray] = None
 
-    def _make_loader(self, batch_size: int):
+    def _make_loader(self, batch_size: int, device):
         """PackedLoader when ``<data_dir>/scene.avpack`` matches the frame
         list (depth in f32 metres), else the PNG/npy prefetcher; batches
-        land on the device from the producer thread."""
+        land on ``device`` from the producer thread (None: host arrays)."""
         from avlmaps_torch.pipeline.loader import PrefetchLoader
         from avlmaps_torch.pipeline.packed import PackedLoader, open_matching
 
@@ -126,10 +129,10 @@ class VLMapBuilderMultiFloor:
                               self.depth_paths)
         if scene is not None:
             return PackedLoader(scene, self.pose_tfs, batch_size=batch_size,
-                                depth_metres=True, device=self.device)
+                                depth_metres=True, device=device)
         return PrefetchLoader(self.rgb_paths, self.depth_paths,
                               self.pose_tfs, batch_size=batch_size,
-                              normalize=False, device=self.device)
+                              normalize=False, device=device)
 
     # -- pass 1: bounds probe ------------------------------------------------
 
@@ -173,15 +176,17 @@ class VLMapBuilderMultiFloor:
         return max(n_rows, n_cols), vh, n_rows, n_cols
 
     def _make_geometry(self, gs: int, vh: int, h: int, w: int,
-                       height: int, width: int, max_depth: float = 10.0):
+                       height: int, width: int, max_depth: float = 10.0,
+                       device=None):
         """Offset-grid unproject chain: sampled depth -> global points ->
         (row=x, col=z, h=y_up) grid ids relative to pcd_min (reference
-        :118-166's math, batched).  Returns ``geometry(z, sample_idx,
-        pose) -> (gid (B, N, 3), fx, fy, alpha, valid)``, the contract of
+        :118-166's math, batched), on ``device`` (the builder's by
+        default).  Returns ``geometry(z, sample_idx, pose) -> (gid (B, N,
+        3), fx, fy, alpha, valid)``, the contract of
         vlmap_builder.make_unproject."""
         cfg = self.map_config
         cs = cfg.cell_size
-        dev = self.device
+        dev = self.device if device is None else device
         inv_calib = torch.tensor(np.linalg.inv(cfg.calib_matrix()),
                                  dtype=torch.float32, device=dev)
         feat_intr = torch.tensor(get_sim_cam_mat(height, width),
@@ -228,6 +233,10 @@ class VLMapBuilderMultiFloor:
         base_size = getattr(cfg, "lseg_base_size", 520)
         crop_size = getattr(cfg, "lseg_crop_size", 480)
         height, width, _, _, _ = plan_windows(h, w, base_size, crop_size)
+        if self.mesh is not None:
+            return self._create_sharded(gs, vh, h, w, height, width,
+                                        max_pts, base_size, crop_size,
+                                        progress)
         geometry = self._make_geometry(gs, vh, h, w, height, width)
         lseg_apply = self.lseg_apply
 
@@ -257,7 +266,7 @@ class VLMapBuilderMultiFloor:
 
         state = init_fusion_state(gs, vh, self.feat_dim, cfg.capacity,
                                   device=dev)
-        loader = self._make_loader(self.batch_size)
+        loader = self._make_loader(self.batch_size, self.device)
         mapped = set()
         with torch.no_grad():
             for batch in loader:
@@ -274,9 +283,53 @@ class VLMapBuilderMultiFloor:
             print()
         return self._save(state, gs, vh, mapped)
 
+    def _create_sharded(self, gs_bound, vh, h, w, height, width, max_pts,
+                        base_size, crop_size, progress):
+        """The multi-device build: frames data-parallel, the probed grid
+        row-sharded over the mesh (parallel/sharded.py) with the offset
+        grid's geometry, the frame transport and the full sliding-window
+        canvas.  The grid is ``gs_bound`` padded up to a multiple of the
+        mesh size; the geometry's validity stays bounded by ``gs_bound``."""
+        from avlmaps_torch.parallel.sharded import ShardedFusion
+
+        cfg = self.map_config
+        n_dev = self.mesh.size
+        gs = -(-gs_bound // n_dev) * n_dev
+        batch = max(self.batch_size, n_dev) // n_dev * n_dev
+        made = {}
+        for dev in self.mesh.devices:
+            if dev not in made:
+                made[dev] = self._make_geometry(gs_bound, vh, h, w, height,
+                                                width, device=dev)
+        fusion = ShardedFusion(
+            self.mesh, gs=gs, cs=cfg.cell_size, vh=vh,
+            feat_dim=self.feat_dim, capacity=cfg.capacity,
+            calib_mat=cfg.calib_matrix(), image_hw=(h, w),
+            lseg_apply=self.lseg_apply, base_size=base_size,
+            crop_size=crop_size, min_depth=cfg.min_depth, max_depth=10.0,
+            half_res_apply=False, transport="frame",
+            geometry_fn=[made[dev] for dev in self.mesh.devices])
+        loader = self._make_loader(batch, device=None)
+        mapped = set()
+        with torch.no_grad():
+            for b in loader:
+                idx = sample_pixels(self.rng, h, w, cfg.depth_sample_rate,
+                                    max_pts, batch)
+                fusion.step(b.rgb, b.depth, b.pose_tf, idx,
+                            b.frame_ids >= 0)
+                mapped.update(int(i) for i in b.frame_ids if i >= 0)
+                if progress:
+                    print(f"\rMultiFloor (sharded x{n_dev}): "
+                          f"{len(mapped)} frames", end="", flush=True)
+        if progress:
+            print()
+        return self._write(fusion.export(), mapped)
+
     def _save(self, state: VoxelFusionState, gs: int, vh: int, mapped):
-        grid_feat, grid_pos, weight, occupied_ids, grid_rgb = \
-            export_fusion_state(state, gs, vh)
+        return self._write(export_fusion_state(state, gs, vh), mapped)
+
+    def _write(self, exported, mapped):
+        grid_feat, grid_pos, weight, occupied_ids, grid_rgb = exported
         save_multi_floor_map(self.map_save_path, grid_feat, grid_pos, weight,
                              occupied_ids, mapped, grid_rgb, self.pcd_min,
                              self.pcd_max, self.map_config.cell_size)

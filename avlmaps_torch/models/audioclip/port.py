@@ -12,23 +12,26 @@
   -> ``(AudioClipConfig, state_dict)``.  The audio and image towers carry
   the checkpoint's own names (``audio.*``, ``visual.*``), so their keys
   load as they are; the top-level CLIP text keys take the CLIP bridge's
-  renames -- the key map of the JAX package's ``port.py:123-203``.
-  Pre-ported ``.msgpack`` files need flax and are read by the JAX
-  package only.
+  renames -- the key map of the JAX package's ``port.py:123-203``; or a
+  pre-ported ``.msgpack`` (:func:`load_audioclip_msgpack`).
 - ``init_params(cfg, generator)``: seeded weights at any width.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import re
+from pathlib import Path
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from avlmaps_torch.models.audioclip.audioclip import AudioClip, AudioClipConfig
+from avlmaps_torch.models.audioclip.esresnet import ESResNeXtConfig
+from avlmaps_torch.models.audioclip.modified_resnet import ModifiedResNetConfig
 from avlmaps_torch.models.clip import port as clip_port
 
 _LAYER = re.compile(r"^layer(\d)_(\d+)$")
@@ -187,13 +190,41 @@ def load_audioclip_checkpoint(path: str) -> Tuple[AudioClipConfig,
     """AudioCLIP-Partial-Training ``.pt`` -> ``(config, state_dict)`` for
     :class:`AudioClipEncoder`.  The config is read off the shapes, which
     do not hold the spectrogram's window and hop: those stay the
-    full-width model's."""
+    full-width model's.  A pre-ported ``.msgpack`` goes to
+    :func:`load_audioclip_msgpack`."""
     if str(path).endswith(".msgpack"):
-        raise NotImplementedError(
-            "pre-ported .msgpack AudioCLIP weights need flax; the port reads "
-            "the reference .pt (ROADMAP.md, Queue 1 item 10)")
+        return load_audioclip_msgpack(path)
     sd = torch.load(str(path), map_location="cpu", weights_only=False)
     if "state_dict" in sd:
         sd = sd["state_dict"]
     cfg = config_from_state_dict(sd)
     return cfg, state_dict_from_reference(sd, cfg)
+
+
+def config_from_jsonable(d: Mapping[str, Any]) -> AudioClipConfig:
+    """The ``.config.json`` sidecar's nested dict -> AudioClipConfig."""
+    def tup(v):
+        return tuple(v) if isinstance(v, list) else v
+
+    audio = ESResNeXtConfig(**{k: tup(v) for k, v in d["audio"].items()})
+    vision = ModifiedResNetConfig(**{k: tup(v)
+                                     for k, v in d["vision"].items()})
+    rest = {k: tup(v) for k, v in d.items() if k not in ("audio", "vision")}
+    return AudioClipConfig(audio=audio, vision=vision, **rest)
+
+
+def load_audioclip_msgpack(path: str) -> Tuple[AudioClipConfig,
+                                               Dict[str, torch.Tensor]]:
+    """A pre-ported ``audioclip.msgpack`` with its
+    ``audioclip.config.json`` sidecar (tools/port_checkpoints.py writes
+    both) -> ``(config, state_dict)``."""
+    from avlmaps_torch.utils import msgpack
+
+    p = Path(path)
+    cfg_path = p.with_suffix(".config.json")
+    if not cfg_path.exists():
+        raise FileNotFoundError(
+            f"{cfg_path} not found — re-run tools/port_checkpoints.py "
+            "(it writes the config sidecar next to the msgpack)")
+    cfg = config_from_jsonable(json.loads(cfg_path.read_text()))
+    return cfg, params_from_flax(msgpack.load(p))

@@ -146,7 +146,8 @@ class ClipEncoder:
                         tokenizer: Optional[ClipTokenizer] = None,
                         device: Union[str, torch.device] = "cuda"
                         ) -> "ClipEncoder":
-        """Load an OpenAI CLIP ``.pt``."""
+        """Load an OpenAI CLIP ``.pt`` or a pre-ported ``.msgpack`` (with
+        its ``.config.json`` sidecar)."""
         cfg, params = load_clip_checkpoint(path)
         enc = cls.__new__(cls)
         enc._setup(cfg, "checkpoint", params, tokenizer, 0, device)

@@ -10,16 +10,18 @@
   Embed ``embedding`` -> ``weight``.
 - ``load_clip_checkpoint(path)``: an OpenAI CLIP ``.pt`` (jit archive or
   plain state dict) -> ``(ClipConfig, state_dict)``, the config inferred
-  from the tensor shapes as OpenAI's ``build_model`` does.  Pre-ported
-  ``.msgpack`` files need flax and are read by the JAX package only.
+  from the tensor shapes as OpenAI's ``build_model`` does; or a
+  pre-ported ``.msgpack`` (:func:`load_clip_msgpack`).
 - ``init_params(cfg, generator)``: seeded weights at any width (real CLIP
   weights are not part of the repository).
 """
 
 from __future__ import annotations
 
+import json
 import math
 import re
+from pathlib import Path
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -157,12 +159,11 @@ def state_dict_from_openai(sd: Mapping[str, Any]
 
 def load_clip_checkpoint(path: str) -> Tuple[ClipConfig,
                                              Dict[str, torch.Tensor]]:
-    """An OpenAI CLIP ``.pt`` (jit archive or plain state dict) ->
-    ``(config, state_dict)`` for :class:`Clip`."""
+    """An OpenAI CLIP ``.pt`` (jit archive or plain state dict) or a
+    pre-ported ``.msgpack`` -> ``(config, state_dict)`` for
+    :class:`Clip`."""
     if str(path).endswith(".msgpack"):
-        raise NotImplementedError(
-            "pre-ported .msgpack CLIP weights need flax; the port reads the "
-            "OpenAI .pt (ROADMAP.md, Queue 1)")
+        return load_clip_msgpack(path)
     try:
         sd = torch.jit.load(str(path), map_location="cpu").state_dict()
     except RuntimeError:
@@ -170,3 +171,25 @@ def load_clip_checkpoint(path: str) -> Tuple[ClipConfig,
         if "state_dict" in sd:
             sd = sd["state_dict"]
     return config_from_state_dict(sd), state_dict_from_openai(sd)
+
+
+def config_from_jsonable(d: Mapping[str, Any]) -> ClipConfig:
+    """The ``.config.json`` sidecar's dict -> :class:`ClipConfig`."""
+    return ClipConfig(**{k: tuple(v) if isinstance(v, list) else v
+                         for k, v in d.items()})
+
+
+def load_clip_msgpack(path: str) -> Tuple[ClipConfig,
+                                          Dict[str, torch.Tensor]]:
+    """A pre-ported ``clip.msgpack`` with its ``clip.config.json`` sidecar
+    (tools/port_checkpoints.py writes both) -> ``(config, state_dict)``."""
+    from avlmaps_torch.utils import msgpack
+
+    p = Path(path)
+    cfg_path = p.with_suffix(".config.json")
+    if not cfg_path.exists():
+        raise FileNotFoundError(
+            f"{cfg_path} not found — re-run tools/port_checkpoints.py "
+            "(it writes the config sidecar next to the msgpack)")
+    cfg = config_from_jsonable(json.loads(cfg_path.read_text()))
+    return cfg, params_from_flax(msgpack.load(p))

@@ -75,13 +75,15 @@ class VoxelFusionState:
 
 
 def init_fusion_state(gs: int, vh: int, feat_dim: int, capacity: int,
-                      device: Union[str, torch.device] = "cuda"
-                      ) -> VoxelFusionState:
+                      device: Union[str, torch.device] = "cuda",
+                      n_rows: Optional[int] = None) -> VoxelFusionState:
     """Fresh accumulators.  The +1 row on per-slot arrays is the trash
-    slot."""
+    slot.  ``n_rows``: a row shard's occupied table covers only that many
+    of the gs rows (default: the whole grid)."""
     dev = resolve_device(device)
+    rows = gs if n_rows is None else n_rows
     return VoxelFusionState(
-        occupied_flat=torch.full((gs * gs * vh,), -1, dtype=torch.int32,
+        occupied_flat=torch.full((rows * gs * vh,), -1, dtype=torch.int32,
                                  device=dev),
         accum=torch.zeros((capacity + 1, feat_dim + ACCUM_PAD),
                           dtype=torch.float32, device=dev),
@@ -113,12 +115,14 @@ class SortedBatch:
 
 def sort_batch(state: VoxelFusionState, vids: torch.Tensor,
                feats: torch.Tensor, rgbs: torch.Tensor, alphas: torch.Tensor,
-               valid: torch.Tensor, *, gs: int, vh: int) -> SortedBatch:
+               valid: torch.Tensor, *, gs: int, vh: int,
+               n_rows: Optional[int] = None) -> SortedBatch:
     """Allocate the batch's new slots in ``state.occupied_flat`` (in place)
-    and return its rows sorted by final slot, ready for the accumulate."""
+    and return its rows sorted by final slot, ready for the accumulate.
+    ``n_rows``: see :func:`fuse_points`."""
     capacity = state.accum.shape[0] - 1
     b = vids.shape[0]
-    n_vox = gs * gs * vh
+    n_vox = (gs if n_rows is None else n_rows) * gs * vh
     if n_vox + capacity + 1 >= INT32_MAX:
         raise ValueError(f"grid of {n_vox} voxels + capacity {capacity} "
                          "overflows the int32 fusion sort key")
@@ -180,6 +184,7 @@ def sort_batch(state: VoxelFusionState, vids: torch.Tensor,
 def fuse_points(state: VoxelFusionState, vids: torch.Tensor,
                 feats: torch.Tensor, rgbs: torch.Tensor, alphas: torch.Tensor,
                 valid: torch.Tensor, *, gs: int, vh: int,
+                n_rows: Optional[int] = None,
                 dedup_scatter: Optional[bool] = None,
                 scatter_rle: bool = True,
                 scatter_split: bool = True) -> VoxelFusionState:
@@ -191,6 +196,11 @@ def fuse_points(state: VoxelFusionState, vids: torch.Tensor,
     ``sum_wfeat += α·feat``, ``sum_wrgb += α·rgb``, ``sum_w += α``.
     Mutates and returns ``state``.
 
+    ``n_rows`` serves row-sharded grids (parallel/sharded.py): the state's
+    occupied table covers only ``n_rows`` of the gs rows and the vids are
+    shard-local (local_row * gs * vh + col * vh + h).  Defaults to the
+    whole grid.
+
     The accumulate takes the JAX package's routes: ``dedup_scatter`` with
     ``scatter_split`` -> K4 (which hands batches it cannot take to K5);
     ``dedup_scatter`` alone -> the assembled update through K5; no dedup ->
@@ -201,7 +211,8 @@ def fuse_points(state: VoxelFusionState, vids: torch.Tensor,
     """
     if dedup_scatter is None:
         dedup_scatter = state.accum.is_cuda
-    sb = sort_batch(state, vids, feats, rgbs, alphas, valid, gs=gs, vh=vh)
+    sb = sort_batch(state, vids, feats, rgbs, alphas, valid, gs=gs, vh=vh,
+                    n_rows=n_rows)
     if dedup_scatter and scatter_split:
         sorted_segment_scatter_add_split(state.accum, sb.slots, sb.feats,
                                          sb.w, sb.aux)

@@ -137,7 +137,28 @@
    ``set_sync_debug_mode("error")`` up to its fetch, against the host
    argmax; then the CLIs ``index_map`` and ``generate_obstacle_map``
    in-process.  Every row of the kernel table gets ``slice9_launches``.
-9. Prints the kernel table as one JSON line, then the card line, and last
+9. Slice 10, the row-sharded build and query (``parallel/sharded.py``).
+   After slice 9's build, while the ViT-L/16 net lives:
+   ``VLMapBuilder(mesh=)`` on the slice-1 scene (32 frames, batch 8)
+   over ``make_mesh(1)`` (the card) and over 4 virtual shards of it
+   (``make_mesh(devices=["cuda:0"] * 4)``; 250,001 accumulator rows a
+   shard), each held against the single-device batch-8 build: the same
+   voxels, weights within rtol 1e-5, features within 2e-2 on the default
+   bf16 wire and 1e-5 on the f32 wire; launches (K1-K3 24 a shard
+   forward, K4 once a shard step, K5 none); frames/s, host and device ms
+   a step, the idle share and K4's ms a shard step (a profiled rebuild);
+   over real cards when the machine has two or more; ``all_to_all`` at
+   slack 4 equal to the all-gather map bit for bit, at slack 2 a subset
+   with each sending shard's drops printed; ``VLMapBuilderMultiFloor
+   (mesh=)`` on slice 9's scene over 4 shards against slice 9's build
+   (gs padded to a multiple of 4); a warm 4-shard step of each routing
+   under ``set_sync_debug_mode("error")``; the payload's bytes and the
+   exchange's ms.  After slice 9's robot: ``VLMap.index_map_sharded`` on
+   the slice-1 map and ``sharded_score_argmax`` at 1e6 x 512, C = 22,
+   over 4 shards, each equal to one K7 launch on every row, and the
+   sharded K7's ms against one launch.  K1-K5 and K7 get
+   ``slice10_launches``; the numbers print as one JSON line.
+10. Prints the kernel table as one JSON line, then the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no result line.
@@ -234,14 +255,15 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, per_call: int = 0) -> float:
     """Device time of every kernel ``fn`` launches, per call, from
     ``torch.profiler``: the kernels' own time, free of the host's launch
     gaps that bound ``time_ms`` near 0.1 ms for a call that launches two
     or more kernels (a wrapper's pass and GEMM, a library call's ops).
     Each kernel counts at its mean time per launch times its launches per
-    call: after the build profiles, a later profile in the same process
-    can miss some of a kernel's records."""
+    call (``per_call`` when given, else the records' count over
+    ``iters``): after the build profiles, a later profile in the same
+    process can miss some of a kernel's records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -251,8 +273,8 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total / e.count * max(1, round(
-        e.count / iters)) for e in prof.key_averages()
+    return sum(e.self_device_time_total / e.count * (per_call or max(
+        1, round(e.count / iters))) for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
@@ -517,14 +539,14 @@ def _uncounted(fn, *args):
     return out
 
 
-def run_lengths(slots) -> dict:
+def run_lengths(slots, capacity: int = CAPACITY) -> dict:
     """Run-length profile of a sorted batch: the runs of real slots, their
     mean and longest length, the rows in runs longer than 32 and 256, and
-    the trash run's rows."""
+    the trash run's rows (slot ``capacity``)."""
     import torch
 
     vals, counts = torch.unique_consecutive(slots, return_counts=True)
-    real = vals != CAPACITY
+    real = vals != capacity
     c = counts[real]
     return dict(runs=int(c.numel()), mean=round(float(c.float().mean()), 3),
                 max=int(c.max()), rows_over_32=int(c[c > 32].sum()),
@@ -584,17 +606,19 @@ def score_kernel_checks():
                    4 * (N_VOX * FEAT + c * FEAT + N_VOX), PEAK_F32)
         got = [dict(name="score_features", fn=sim.score_features,
                     replaces="avlmaps_tpu/ops/similarity.py:56",
-                    max_abs_err=err8, ms=time_ms(k8), plain_ms=time_ms(p8),
-                    bound_ms=b8[0], bound_by=b8[1], library_ms=time_ms(lib8)),
+                    max_abs_err=err8, ms=time_ms(k8), device_ms=device_ms(k8),
+                    plain_ms=time_ms(p8), bound_ms=b8[0], bound_by=b8[1],
+                    library_ms=time_ms(lib8),
+                    library_device_ms=device_ms(lib8)),
                dict(name="score_argmax", fn=sim.score_argmax,
                     replaces="avlmaps_tpu/ops/similarity.py:157",
-                    max_abs_err=bad, ms=time_ms(k7), plain_ms=time_ms(p7),
-                    bound_ms=b7[0], bound_by=b7[1], library_ms=time_ms(lib7))]
+                    max_abs_err=bad, ms=time_ms(k7), device_ms=device_ms(k7),
+                    plain_ms=time_ms(p7), bound_ms=b7[0], bound_by=b7[1],
+                    library_ms=time_ms(lib7),
+                    library_device_ms=device_ms(lib7))]
         for r in got:
             r.update(route="cuda", source="avlmaps_torch/csrc/similarity.cu")
-            print(f"  {r['name']} C={c}: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            print(f"  {r['name']} C={c}: {_times(r)}")
         if c == 22:  # the serving shape goes into the kernel table
             rows += got
 
@@ -1312,14 +1336,19 @@ class _AllocatingLib:
         return launch
 
 
-def _sorted_step(captured):
+def _sorted_step(captured, gs: int = None, vh: int = None,
+                 capacity: int = CAPACITY, n_rows: int = None):
     """A captured fusion step sorted into a fresh state, as fuse_points
-    hands it to K4/K5."""
+    hands it to K4/K5: the slice-1 grid by default, or a row shard's
+    (``n_rows`` rows of a ``gs`` grid, ``capacity`` slots)."""
     from avlmaps_torch.ops import voxel_fusion as vf
 
-    mc, _ = _map_setup()
-    state = vf.init_fusion_state(mc.gs, mc.vh, FEAT, CAPACITY, device="cuda")
-    return vf.sort_batch(state, *captured, gs=mc.gs, vh=mc.vh)
+    if gs is None:
+        mc, _ = _map_setup()
+        gs, vh = mc.gs, mc.vh
+    state = vf.init_fusion_state(gs, vh, FEAT, capacity, device="cuda",
+                                 n_rows=n_rows)
+    return vf.sort_batch(state, *captured, gs=gs, vh=vh, n_rows=n_rows)
 
 
 def k4_real_check(captured, k4_row):
@@ -2669,13 +2698,18 @@ MF_FEAT_TOL = 1e-5  # |d| <= tol + tol * |CPU| for the stand-in features
 
 
 def write_two_floor_scene(root: Path, seed: int = 5) -> list:
-    """write_scene's frames with global camera poses (habitat axes, y up,
-    camera 1.5 m above its floor): 16 frames a floor, the second floor
-    3 m above the first, each floor's walk 5 cm forward and 2 deg of yaw
-    a frame.  Returns the 4x4 poses."""
+    """write_scene's frames with global camera poses; returns the 4x4
+    poses (:func:`two_floor_poses`)."""
+    write_scene(root, MF_FRAMES, seed)
+    return two_floor_poses()
+
+
+def two_floor_poses() -> list:
+    """Global camera poses (habitat axes, y up, camera 1.5 m above its
+    floor): 16 frames a floor, the second floor 3 m above the first, each
+    floor's walk 5 cm forward and 2 deg of yaw a frame."""
     from avlmaps_torch.geometry.transforms import pose_vec_to_tf
 
-    write_scene(root, MF_FRAMES, seed)
     tfs = []
     for i in range(MF_FRAMES):
         floor, k = divmod(i, MF_FRAMES // 2)
@@ -2900,6 +2934,798 @@ def multi_floor_run(net, tmp: Path, rows, k5_row, vit_rows):
     print(f"  slice 9 build phase: {time.perf_counter() - t_phase:.1f} s "
           "wall")
     return scene, shape_rows, checks
+
+
+# slice 10: the row-sharded build and query (parallel/sharded.py).  The
+# slice-1 scene (32 frames, batch 8 = 4 steps) on a mesh of the real card
+# and on 4 virtual shards of it (capacity 1e6 / 4 + 1 = 250,001 rows a
+# shard: S % 8 == 1, so K4 skips each shard's trash run), slice 9's
+# two-floor scene on 4 virtual shards, and K7 on row shards
+S10_BATCH = 8
+S10_SHARDS = 4
+S10_BF16_TOL = 2e-2  # the bf16 wire rounds each point's feature once
+S10_F32_TOL = 1e-5  # the f32 wire: the single-device build's own sums
+
+
+class _FusionOptions:
+    """Every ShardedFusion a builder makes inside takes ``kw`` (the
+    builders choose neither the wire format nor the routing) and is kept
+    in ``made``."""
+
+    def __init__(self, **kw):
+        self.kw, self.made = kw, []
+
+    def __enter__(self):
+        from avlmaps_torch.parallel import sharded
+
+        self.cls = cls = sharded.ShardedFusion
+
+        def make(*args, **kw):
+            f = cls(*args, **{**kw, **self.kw})
+            self.made.append(f)
+            return f
+
+        sharded.ShardedFusion = make
+        return self
+
+    def __exit__(self, *exc):
+        from avlmaps_torch.parallel import sharded
+
+        sharded.ShardedFusion = self.cls
+
+
+def _s10_held(name: str, got, want, tol, checks: dict) -> None:
+    """``got`` against ``want`` (grid_feat, grid_pos, weight): the same
+    voxels, weights within rtol 1e-5, features within tol + tol x |want|
+    (printed only for ``tol=None``); slots may come in another order
+    (each shard allocates its own)."""
+    fg, pg, wg = got[:3]
+    fw, pw, ww = want[:3]
+    kg, kw = np.lexsort(pg.T), np.lexsort(pw.T)
+    same = pg.shape == pw.shape and np.array_equal(pg[kg], pw[kw])
+    checks[f"{name}: the same voxels"] = same
+    if not same:
+        print(f"  {name}: {len(pg)} voxels against {len(pw)}")
+        return
+    rel_w = float((np.abs(wg[kg] - ww[kw]) / ww[kw]).max())
+    d = np.abs(fg[kg] - fw[kw])
+    held = ("not held" if tol is None
+            else f"tolerance {tol:g} + {tol:g} x |reference|")
+    print(f"  {name}: {len(pg)} voxels equal; max weight rel d {rel_w:.3e}; "
+          f"max |feat d| {float(d.max()):.3e} ({held})")
+    checks[f"{name}: weights within rtol 1e-5"] = rel_w <= 1e-5
+    if tol is not None:
+        checks[f"{name}: features within {tol:g}"] = bool(
+            (d <= tol + tol * np.abs(fw[kw])).all())
+
+
+def _arrays(m):
+    return m.grid_feat, m.grid_pos, m.weight, m.occupied_ids, m.grid_rgb
+
+
+def _s10_builder(apply, scene: Path, out: Path, mesh=None,
+                 batch: int = S10_BATCH):
+    """``VLMapBuilder`` of the slice-1 scene saving into ``out``: a fresh
+    build, not a resume of slice 1's map."""
+    from avlmaps_torch.map.vlmap_builder import VLMapBuilder
+
+    mc, tfs = _map_setup()
+    b = VLMapBuilder(scene, mc, scene / "poses.txt", *_frames(scene), *tfs,
+                     lseg_apply=apply, feat_dim=FEAT, batch_size=batch,
+                     seed=0, half_res_apply=True, device="cuda", mesh=mesh)
+    b.map_save_dir = out
+    b.map_save_path = out / "vlmaps.h5df"
+    return b
+
+
+def _s10_build(apply, scene: Path, out: Path, mesh=None,
+               batch: int = S10_BATCH, **kw):
+    """:func:`_s10_builder`'s map with ``kw`` for its ShardedFusion;
+    returns the map, the builder and the fusions made."""
+    with _FusionOptions(**kw) as opts:
+        b = _s10_builder(apply, scene, out, mesh, batch)
+        m = b.create_mobile_base_map(save_every=0, progress=False)
+    return m, b, opts.made
+
+
+def real_cards_run(net, scene: Path, tmp: Path, checks: dict) -> None:
+    """(a) over the machine's cards (4, or 2 if fewer), one copy of the
+    net on each, against the single-device build whose forward has a
+    shard's shapes; prints that it did not run on a one-card machine."""
+    import torch
+
+    from avlmaps_torch.parallel import make_mesh
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print("  one card: (a) over real cards did not run")
+        return
+    k = 4 if n_cards >= 4 else 2
+    copies = [copy.deepcopy(net).to(f"cuda:{i}") for i in range(k)]
+    applies = [lambda x, c=c: c(x, upsample=False) for c in copies]
+    t0 = time.perf_counter()
+    m, b, _ = _s10_build(applies, scene, tmp / "slice10" / "real_cards",
+                         make_mesh(k))
+    wall = time.perf_counter() - t0
+    ref, _, _ = _s10_build(lambda x: net(x, upsample=False), scene,
+                           tmp / "slice10" / "single_real",
+                           batch=S10_BATCH // k)
+    print(f"  (a) {k} real cards: {b.build_stats['fps']:.2f} frames/s "
+          f"(RateMeter), whole build {wall:.2f} s; {card_line()}")
+    _s10_held(f"(a) {k} real cards bf16 wire", _arrays(m), _arrays(ref),
+              S10_BF16_TOL, checks)
+
+
+class _ShardInputs:
+    """The first ``n`` calls of parallel/sharded.py's ``fuse_points`` (one
+    step's shards, in device order) record clones of their inputs, as
+    ``_fuse_owned`` hands them over; the fusion goes on unchanged."""
+
+    def __init__(self, n: int):
+        self.n, self.got = n, []
+
+    def __enter__(self):
+        from avlmaps_torch.parallel import sharded
+
+        self.fuse = fuse = sharded.fuse_points
+
+        def capture(state, *args, **kw):
+            if len(self.got) < self.n:
+                self.got.append([a.clone() for a in args])
+                self.shape = dict(gs=kw["gs"], vh=kw["vh"],
+                                  n_rows=kw["n_rows"],
+                                  capacity=state.accum.shape[0] - 1)
+            return fuse(state, *args, **kw)
+
+        sharded.fuse_points = capture
+        return self
+
+    def __exit__(self, *exc):
+        from avlmaps_torch.parallel import sharded
+
+        sharded.fuse_points = self.fuse
+
+
+def shard_scatter_check(label: str, shards, row, *, gs: int, vh: int,
+                        n_rows: int, capacity: int, launches: int) -> dict:
+    """K4 or K5 (``row``) at a sharded step's shape: each shard's captured
+    inputs sorted into a fresh shard state (``n_rows`` of ``gs`` rows,
+    ``capacity`` slots, so the points the shard does not own fill the
+    trash run), held against the plain version at 1e-4 + 1e-5 x |plain|
+    and bitwise against the other kernel on the same batch; each shard's
+    device time, and the times, library time and bound on the shard with
+    the most owned rows.  Returns a ``more_shapes`` row."""
+    import torch
+
+    from avlmaps_torch.ops import segment_scatter as ss
+
+    k4 = ss.sorted_segment_scatter_add_split
+    k5 = ss.sorted_segment_scatter_add
+    is_k4 = row["fn"] is k4
+    name = "K4" if is_k4 else "K5"
+    errs, dev_ms, owned = [], [], []
+    for j, captured in enumerate(shards):
+        sb = _sorted_step(captured, gs, vh, capacity, n_rows)
+        update = torch.cat([sb.w[:, None] * sb.feats.float(), sb.aux], dim=1)
+        base = torch.zeros(capacity + 1, ACCUM_W, device="cuda")
+        n_real = int((sb.slots != capacity).sum())
+        if is_k4:
+            got = _uncounted(k4, base.clone(), sb.slots, sb.feats, sb.w,
+                             sb.aux)
+            want = ss.sorted_segment_scatter_add_split_ref(
+                base.clone(), sb.slots, sb.feats, sb.w, sb.aux)
+            other = _uncounted(k5, base.clone(), sb.slots, update)
+        else:
+            got = _uncounted(k5, base.clone(), sb.slots, update)
+            want = ss.sorted_segment_scatter_add_ref(base.clone(), sb.slots,
+                                                     update)
+            before = k4.launches  # a check's launch, not the main path's
+            other = ss.split_kernel(base.clone(), sb.slots, sb.feats, sb.w,
+                                    sb.aux)
+            k4.launches = before
+        other_name = "K5" if is_k4 else "K4"
+        errs.append(compare(
+            f"{label} shard {j}: {name} on {sb.slots.numel()} rows, "
+            f"{n_real} owned, {sb.slots.numel() - n_real} in the trash run",
+            got[:capacity], want[:capacity], 1e-4, 1e-5))
+        same = torch.equal(got[:capacity], other[:capacity])
+        print(f"  {'pass' if same else 'FAIL'}: {label} shard {j}: {name} "
+              f"== {other_name} bitwise on rows [0, {capacity})")
+        if not same:
+            raise AssertionError(f"{label} shard {j}: {name} and "
+                                 f"{other_name} disagree")
+        del got, want, other
+        acc = base
+        if is_k4:
+            fn = lambda: k4(acc, sb.slots, sb.feats, sb.w,  # noqa: E731
+                            sb.aux)
+        else:
+            fn = lambda: k5(acc, sb.slots, update)  # noqa: E731
+        before = row["fn"].launches
+        dev_ms.append(device_ms(fn))
+        row["fn"].launches = before
+        owned.append(n_real)
+        del sb, update, acc, base
+    j = max(range(len(shards)), key=owned.__getitem__)
+    sb = _sorted_step(shards[j], gs, vh, capacity, n_rows)
+    update = torch.cat([sb.w[:, None] * sb.feats.float(), sb.aux], dim=1)
+    acc = torch.zeros(capacity + 1, ACCUM_W, device="cuda")
+    idx = sb.slots.long()
+    real = sb.slots[sb.slots != capacity]
+    n_real, n_unique = int(real.numel()), int(torch.unique(real).numel())
+    if is_k4:
+        esz = sb.feats.element_size()
+        b_ms, b_by = bound(2 * n_real * ACCUM_W,
+                           n_real * (esz * FEAT + 4 + 4 * (ACCUM_W - FEAT)
+                                     + 4) + n_unique * ACCUM_W * 8, PEAK_F32)
+        fn = lambda: k4(acc, sb.slots, sb.feats, sb.w, sb.aux)  # noqa: E731
+        plain = lambda: ss.sorted_segment_scatter_add_split_ref(  # noqa: E731
+            acc, sb.slots, sb.feats, sb.w, sb.aux)
+    else:
+        b_ms, b_by = bound(n_real * ACCUM_W,
+                           n_real * (4 * ACCUM_W + 4)
+                           + n_unique * ACCUM_W * 8, PEAK_F32)
+        fn = lambda: k5(acc, sb.slots, update)  # noqa: E731
+        plain = lambda: ss.sorted_segment_scatter_add_ref(  # noqa: E731
+            acc, sb.slots, update)
+    lib = lambda: acc.index_add_(0, idx, update)  # noqa: E731
+    before = row["fn"].launches
+    out = {**{k: row[k] for k in ("name", "route", "source", "replaces")},
+           "shape": (f"{label}: {sb.slots.numel()} rows a shard, "
+                     f"S={capacity + 1}, shard {j} of {len(shards)}"),
+           "launches": launches, "max_abs_err": max(errs),
+           "ms": time_ms(fn), "device_ms": dev_ms[j],
+           "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
+           "shard_device_ms": dev_ms,
+           "runs": run_lengths(sb.slots, capacity)}
+    row["fn"].launches = before
+    print(f"  {label}: {name} on shard {j} ({n_real} owned rows, "
+          f"{n_unique} voxels): {_times(out)}; each shard's device ms "
+          f"{[round(t, 4) for t in dev_ms]}; runs {out['runs']}; "
+          f"{card_line()}")
+    del sb, update, acc, idx
+    torch.cuda.empty_cache()
+    return out
+
+
+class _DropLedger:
+    """Wraps ``ShardedFusion.exchange`` under all-to-all routing: per
+    sending shard, the valid points past the first ``cap`` of each owner
+    in the order the sender made them (``cap`` derived anew from the
+    payload's size, the mesh and ``a2a_slack``), and their summed weight:
+    what the routing must drop and count."""
+
+    def __init__(self, cls):
+        self.cls, self.exchange = cls, cls.exchange
+        self.dropped, self.lost_w = {}, 0.0
+
+    def __enter__(self):
+        import torch
+
+        ledger, exchange = self, self.exchange
+
+        def counted(fusion, payloads):
+            n, rows = fusion.n_dev, fusion.rows_per_dev
+            for i, (gid, _, _, alpha, valid) in enumerate(payloads):
+                n_pts = gid.shape[0]
+                cap = int(min(n_pts, -(-n_pts // n) * fusion.a2a_slack))
+                cap = max(8, -(-cap // 8) * 8)
+                owner = torch.clamp(gid[:, 0], 0, fusion.gs - 1) // rows
+                late = torch.zeros_like(valid)
+                for o in range(n):
+                    mine = valid & (owner == o)
+                    late |= mine & (torch.cumsum(mine, 0) > cap)
+                ledger.dropped[i] = ledger.dropped.get(i, 0) + int(late.sum())
+                ledger.lost_w += float(alpha[late].double().sum())
+            return exchange(fusion, payloads)
+
+        self.cls.exchange = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.exchange = self.exchange
+
+
+class _OpPrints:
+    """A torch function mode that, once ``on`` is set, records every call
+    with a tensor result: its name and the exact integer sums of the bits
+    of its tensor inputs and outputs.  With ``ref`` (another run's
+    records), each tensor is first cut to the rows of ``ref``'s tensor in
+    the same place where only the leading dimension differs (the first
+    crops of a larger batch); call number ``want`` keeps its first output
+    so cut."""
+
+    def __init__(self, ref=None, want: int = -1):
+        from torch.overrides import TorchFunctionMode
+
+        outer = self
+
+        class Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                res = func(*args, **(kwargs or {}))
+                if outer.on:
+                    outer.record(func, args, kwargs, res)
+                return res
+
+        self.mode = Mode()
+        self.ref, self.want = ref, want
+        self.on, self.calls, self.kept = False, [], None
+
+    @staticmethod
+    def _cut(t, shape):
+        if (shape is not None and t.dim() == len(shape) and t.dim()
+                and tuple(t.shape[1:]) == shape[1:] and t.shape[0] > shape[0]):
+            return t[:shape[0]]
+        return t
+
+    @staticmethod
+    def _bits(t) -> tuple:
+        import torch
+
+        t = t.detach().contiguous()
+        if t.is_floating_point():
+            t = t.view({8: torch.int64, 4: torch.int32,
+                        2: torch.int16}[t.element_size()])
+        return tuple(t.shape), int(t.long().sum())
+
+    def record(self, func, args, kwargs, res) -> None:
+        import torch
+
+        def tensors(x):
+            if isinstance(x, torch.Tensor):
+                return [x]
+            if isinstance(x, (list, tuple)):
+                return [t for v in x for t in tensors(v)]
+            if isinstance(x, dict):
+                return [t for v in x.values() for t in tensors(v)]
+            return []
+
+        outs = tensors(res)
+        if not outs:
+            return
+        i = len(self.calls)
+        ref = self.ref[i] if self.ref and i < len(self.ref) else None
+
+        def prints(ts, k):
+            shapes = [s for s, _ in ref[k]] if ref else []
+            return [self._bits(self._cut(t, shapes[j] if j < len(shapes)
+                                         else None))
+                    for j, t in enumerate(ts)]
+
+        if i == self.want:
+            self.kept = self._cut(outs[0], ref[2][0][0] if ref else None
+                                  ).detach().clone()
+        self.calls.append((getattr(func, "__name__", str(func)),
+                           prints(tensors((args, kwargs)), 1),
+                           prints(outs, 2)))
+
+
+def forward_batch_probe(net, crops, per: int) -> dict:
+    """Where the LSeg forward's dependence on the batch size sits: the
+    decoder and head of ``net`` on the first ``per`` of ``crops`` alone
+    and on all of them, call by call (every torch call from the decoder
+    on, compared by exact bit sums over those ``per`` crops): the first
+    call whose output differs, whether its inputs agree, and its output's
+    max |d|.  Also whether one crop's output depends on another's at a
+    fixed batch: with crop 0 replaced, every other crop's output must
+    stay bit for bit."""
+    import torch
+
+    def run(x, ref=None, want=-1):
+        rec = _OpPrints(ref, want)
+        hook = net.decoder.register_forward_pre_hook(
+            lambda *_: setattr(rec, "on", True))
+        try:
+            with torch.no_grad(), rec.mode:
+                out = net(x, upsample=False)
+        finally:
+            hook.remove()
+        return rec, out
+
+    with torch.no_grad():  # caches filled, so both runs make one sequence
+        net(crops[:per], upsample=False)
+        net(crops, upsample=False)
+    part, out_p = run(crops[:per])
+    whole, out_w = run(crops, part.calls)
+    first = next((i for i, (a, b) in enumerate(zip(whole.calls, part.calls))
+                  if a[2] != b[2]), None)
+    res = dict(calls=len(part.calls),
+               same_calls=[c[0] for c in whole.calls]
+               == [c[0] for c in part.calls],
+               output_d=float((out_w[:per].float() - out_p.float())
+                              .abs().max()),
+               cudnn_benchmark=torch.backends.cudnn.benchmark,
+               first_call=first)
+    if first is not None:
+        name, ins, _ = part.calls[first]
+        b = run(crops[:per], want=first)[0].kept
+        a = run(crops, part.calls, first)[0].kept
+        res.update(first_call_name=name,
+                   first_call_inputs_equal=ins == whole.calls[first][1],
+                   first_call_input_shapes=[s for s, _ in ins],
+                   first_call_d=(float((a.float() - b.float()).abs().max())
+                                 if a.shape == b.shape else None))
+    swapped = crops.clone()
+    swapped[0] = crops[-1]
+    with torch.no_grad():
+        out_s = net(swapped, upsample=False)
+    res["crops_independent"] = torch.equal(out_s[1:], out_w[1:])
+    return res
+
+
+def sharded_build_run(net, scene: Path, mf_scene: Path, tmp: Path, rows,
+                      k5_row, checks: dict) -> dict:
+    """Slice 10's builds while the ViT-L net lives: ``VLMapBuilder(mesh=)``
+    on the slice-1 scene over the real card and over 4 virtual shards,
+    each held against the single-device build whose forward has the
+    shard's shapes (bf16 and f32 wires): batch 8 for one shard, batch 2
+    for four, since the card's LSeg forward is not batch-invariant (the
+    4-shard build is also held to the batch-8 build on voxels and
+    weights, its feature difference printed beside the forward's own,
+    which :func:`forward_batch_probe` traces to its first call); K4 on
+    the 4-shard step's inputs against its plain version; the all-to-all
+    routing, lossless at slack 4 and at slacks 2 and 1 a subset whose
+    drops each sender counts exactly; ``VLMapBuilderMultiFloor(mesh=)``
+    on slice 9's scene at batch 32 (8 frames a shard: slice 9's forward,
+    and K5 on > 100,000 gathered rows, held to its plain version on that
+    step's inputs) against slice 9's build; a warm sharded step under
+    ``set_sync_debug_mode("error")``; the exchange's bytes and time;
+    ``dryrun_multichip`` on 4 virtual shards.  Sets K1-K5's
+    ``slice10_launches`` from the 4-shard build; returns the printed
+    numbers, with the K4/K5 rows at the shard shapes under
+    ``scatter_rows``."""
+    import torch
+
+    from avlmaps_torch.map.vlmap_builder import sample_pixels
+    from avlmaps_torch.map.vlmap_builder_multi_floor import (
+        VLMapBuilderMultiFloor, load_multi_floor_map)
+    from avlmaps_torch.models.lseg.window import plan_windows
+    from avlmaps_torch.parallel import make_mesh
+    from avlmaps_torch.parallel.dryrun import dryrun_multichip
+    from avlmaps_torch.parallel.sharded import ShardedFusion
+    from avlmaps_torch.pipeline.loader import PrefetchLoader
+    from avlmaps_torch.pipeline.transport import make_canvas_transform
+
+    t_phase = time.perf_counter()
+    mc = _map_setup()[0]
+    steps = N_FRAMES // S10_BATCH
+    virtual = make_mesh(devices=["cuda:0"] * S10_SHARDS)
+    out = tmp / "slice10"
+    numbers = {"card": card_line()}
+
+    def apply(x):
+        return net(x, upsample=False)
+
+    def build(name, mesh=None, batch=S10_BATCH, **kw):
+        return _s10_build(apply, scene, out / name, mesh, batch, **kw)
+
+    # the references: the single-device builds whose forward has each
+    # mesh's shard shapes (the same draws: the sampler goes frame by frame)
+    per_shard = S10_BATCH // S10_SHARDS
+    ref = _arrays(build("single")[0])
+    refs = {"mesh1": ref, "mesh4": _arrays(build(
+        "single_per_shard", batch=per_shard)[0])}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    crops = torch.randn(S10_BATCH * CROPS, 480, 480, 3, generator=g,
+                        device="cuda")
+    with torch.no_grad():
+        whole = net(crops, upsample=False).float()
+        parts = torch.cat([net(c, upsample=False).float()
+                           for c in crops.split(per_shard * CROPS)])
+        vit = net.backbone(crops)
+        vit_parts = [net.backbone(c) for c in crops.split(per_shard * CROPS)]
+    d_vit = max(float((t.float() - torch.cat([p[i] for p in vit_parts])
+                       .float()).abs().max()) for i, t in enumerate(vit))
+    numbers["forward_batch_dependence"] = dict(
+        vit_taps=d_vit, output=float((whole - parts).abs().max()))
+    print(f"  the LSeg forward of {S10_BATCH * CROPS} crops against "
+          f"{S10_SHARDS} forwards of {per_shard * CROPS}: ViT taps max |d| "
+          f"{d_vit:.3e}, output max |d| "
+          f"{numbers['forward_batch_dependence']['output']:.3e}")
+    del whole, parts, vit, vit_parts
+    probe = forward_batch_probe(net, crops, per_shard * CROPS)
+    numbers["forward_batch_dependence"].update(probe)
+    print(f"  the same forward call by call from the decoder on "
+          f"({probe['calls']} torch calls, crops 0-{per_shard * CROPS - 1}, "
+          f"cudnn.benchmark {probe['cudnn_benchmark']}): first output to "
+          f"differ is call {probe['first_call']} "
+          f"{probe.get('first_call_name')} on inputs "
+          f"{probe.get('first_call_input_shapes')} (inputs equal: "
+          f"{probe.get('first_call_inputs_equal')}), max |d| "
+          f"{probe.get('first_call_d')}; final output max |d| "
+          f"{probe['output_d']:.3e}; crop 0 replaced, crops 1-"
+          f"{S10_BATCH * CROPS - 1} bit for bit: "
+          f"{probe['crops_independent']}")
+    checks["(a) no crop's LSeg output depends on another crop's at a "
+           "fixed batch"] = probe["crops_independent"]
+    del crops
+
+    # (a) a mesh of the real card and 4 virtual shards: the loop on the host
+    # clock up to the export, launches, a profiled rebuild, the default
+    # bf16 wire against the single-device build
+    counted = rows[:4] + [k5_row]
+    export, loop_end = ShardedFusion.export, []
+
+    def timed_export(self):
+        torch.cuda.synchronize()
+        loop_end.append(time.perf_counter())
+        return export(self)
+
+    maps = {}
+    for label, mesh in (("mesh1", make_mesh(1)), ("mesh4", virtual)):
+        _zero(counted)
+        loop_end.clear()
+        ShardedFusion.export = timed_export
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m, b, _ = build(label, mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ShardedFusion.export = export
+        counts = _counts(counted)
+        n = mesh.size
+        want = {"ln_matmul": LAYERS * n * steps,
+                "mha_oneshot_2d": LAYERS * n * steps,
+                "ln_mlp_residual": LAYERS * n * steps,
+                "sorted_segment_scatter_add_split": n * steps,
+                "sorted_segment_scatter_add": 0}
+        checks[f"(a) {label}: K1-K3 24 a shard forward, K4 once a shard "
+               "step, K5 none"] = counts == want
+        if label == "mesh4":
+            for r in counted:
+                r["slice10_launches"] = r["fn"].launches
+        host_ms = (loop_end[0] - t0) * 1e3 / steps
+        dev_ms = profile_build(_s10_builder(
+            apply, scene, out / f"{label}_profiled", mesh), steps)
+        k4_ms = path_ms("segment_scatter_kernel")
+        numbers[label] = dict(
+            frames_s=N_FRAMES / (loop_end[0] - t0), host_ms=host_ms,
+            device_ms=dev_ms, idle=1 - dev_ms / host_ms,
+            ratemeter_fps=b.build_stats["fps"], wall_s=wall,
+            k4_ms_a_launch=k4_ms)
+        print(f"  {label} ({n} shard{'s' if n > 1 else ''}): "
+              f"{numbers[label]['frames_s']:.2f} frames/s, host "
+              f"{host_ms:.1f} ms a step (loop to the export), device "
+              f"{dev_ms:.1f} ms a step (profiled rebuild), idle share "
+              f"{1 - dev_ms / host_ms:.3f}; RateMeter "
+              f"{b.build_stats['fps']:.2f} frames/s; whole build "
+              f"{wall:.2f} s; K4 {k4_ms:.4f} ms a shard step; launches "
+              f"{counts}; {numbers['card']}")
+        maps[label] = _arrays(m)
+        _s10_held(f"(a) {label} bf16 wire", maps[label], refs[label],
+                  S10_BF16_TOL, checks)
+    _s10_held("(a) mesh4 against the batch-8 build", maps["mesh4"], ref,
+              None, checks)
+    for label, mesh in (("mesh1", make_mesh(1)), ("mesh4", virtual)):
+        with _ShardInputs(mesh.size) as step1:
+            m, _, _ = build(label + "_f32", mesh, payload_dtype=torch.float32)
+        _s10_held(f"(a) {label} f32 wire", _arrays(m), refs[label],
+                  S10_F32_TOL, checks)
+    # K4 at a shard's shape: the 4-shard build's first step (the f32
+    # wire's: the bf16 wire's rows, slots and trash run, the features
+    # unrounded), 3/4 of each shard's rows in its trash run
+    scatter = [shard_scatter_check(
+        f"(a) {S10_SHARDS}-shard step", step1.got, rows[3],
+        launches=rows[3]["slice10_launches"], **step1.shape)]
+    del step1
+    real_cards_run(net, scene, tmp, checks)
+
+    # (b) all-to-all: lossless at slack 4; at slacks 2 and 1 a subset,
+    # each sender's drops counted exactly (slack 1 must drop)
+    m, b, _ = build("a2a_slack4", virtual, payload_routing="all_to_all",
+                    a2a_slack=4.0)
+    checks["(b) all_to_all at slack 4 == the 4-shard all-gather map, "
+           "bit for bit, nothing dropped"] = all(
+        np.array_equal(x, y) for x, y in zip(_arrays(m), maps["mesh4"])) \
+        and b.build_stats["points_dropped"] == 0
+    have = {tuple(p) for p in maps["mesh4"][1]}
+    w_all = float(maps["mesh4"][2].astype(np.float64).sum())
+    for slack in (2.0, 1.0):
+        with _DropLedger(ShardedFusion) as ledger:
+            m, b, made = build(f"a2a_slack{slack:g}", virtual,
+                               payload_routing="all_to_all",
+                               a2a_slack=slack)
+        per_shard = [int(st.n_dropped) for st in made[0].states]
+        want = [ledger.dropped[i] for i in range(S10_SHARDS)]
+        subset = all(tuple(p) in have for p in m.grid_pos)
+        lost = w_all - float(m.weight.astype(np.float64).sum())
+        print(f"  (b) all_to_all at slack {slack:g}: {len(m.grid_pos)} of "
+              f"{len(have)} voxels; n_dropped by sending shard {per_shard}, "
+              f"points past a full bucket {want}; weight lost {lost:.6g} "
+              f"against the dropped points' {ledger.lost_w:.6g}")
+        numbers[f"a2a_slack{slack:g}"] = dict(
+            voxels=len(m.grid_pos), all_gather_voxels=len(have),
+            n_dropped=per_shard, weight_lost=lost,
+            dropped_weight=ledger.lost_w)
+        checks[f"(b) all_to_all at slack {slack:g}: a subset of the "
+               "voxels"] = subset
+        checks[f"(b) all_to_all at slack {slack:g}: each sender's n_dropped "
+               "== its points past a full bucket"] = per_shard == want
+        checks[f"(b) all_to_all at slack {slack:g}: the map lost the "
+               "dropped points' weight (rtol 1e-5)"] = \
+            abs(lost - ledger.lost_w) <= 1e-5 * w_all
+        if slack == 1.0:
+            checks["(b) all_to_all at slack 1 drops points"] = \
+                sum(per_shard) > 0 and ledger.lost_w > 0
+
+    # (c) the multi-floor build on 4 virtual shards against slice 9's: 8
+    # frames a shard, slice 9's forward shapes; 4 x 62,208 gathered rows a
+    # shard take K5
+    mf_ref = load_multi_floor_map(mf_scene / "vlmap_multi_floor"
+                                  / "vlmaps_multi_floor.h5df")
+    mb = VLMapBuilderMultiFloor(
+        mf_scene, mc, sorted((mf_scene / "rgb").glob("*.png")),
+        sorted((mf_scene / "depth").glob("*.npy")), two_floor_poses(),
+        lseg_apply=net, feat_dim=FEAT, batch_size=MF_BATCH * S10_SHARDS,
+        seed=0, mesh=virtual)
+    mb.map_save_dir = out / "multi_floor"
+    mb.map_save_path = mb.map_save_dir / "vlmaps_multi_floor.h5df"
+    _zero(counted)
+    t0 = time.perf_counter()
+    with _ShardInputs(S10_SHARDS) as mf_step1:
+        got = mb.create_global_map(progress=False)
+    counts = _counts(counted)
+    gs9, gs = mf_ref[4].shape[0], got[3].shape[0]
+    print(f"  (c) multi-floor on {S10_SHARDS} shards, batch "
+          f"{MF_BATCH * S10_SHARDS}: gs {gs9} -> {gs}, "
+          f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+    checks["(c) multi-floor gs padded to a multiple of 4"] = \
+        gs == -(-gs9 // S10_SHARDS) * S10_SHARDS
+    steps_mf = math.ceil(MF_FRAMES / (MF_BATCH * S10_SHARDS))
+    checks["(c) multi-floor: K1-K3 24 a shard forward, K5 once a shard "
+           "step, K4 none"] = counts == {
+        "ln_matmul": LAYERS * S10_SHARDS * steps_mf,
+        "mha_oneshot_2d": LAYERS * S10_SHARDS * steps_mf,
+        "ln_mlp_residual": LAYERS * S10_SHARDS * steps_mf,
+        "sorted_segment_scatter_add_split": 0,
+        "sorted_segment_scatter_add": S10_SHARDS * steps_mf}
+    _s10_held("(c) multi-floor, 4 shards vs slice 9", got, mf_ref[1:4],
+              S10_BF16_TOL, checks)
+    # K5 at a shard's shape: the two-floor build's first step
+    scatter.append(shard_scatter_check(
+        f"(c) {S10_SHARDS}-shard two-floor step", mf_step1.got, k5_row,
+        launches=counts["sorted_segment_scatter_add"], **mf_step1.shape))
+    del mf_step1
+
+    # (e) a warm 4-shard step makes no host sync; the exchange's bytes and
+    # copy time (concatenations on one card: no link is crossed)
+    h, w = 720, 1080
+    height, width, _, _, _ = plan_windows(h, w)
+    n_pts = mc.point_budget(h, w)
+    rng = np.random.default_rng(0)
+    transform = make_canvas_transform(
+        lambda nb: sample_pixels(rng, h, w, mc.depth_sample_rate, n_pts, nb),
+        (height, width))
+    rgb, depth = _frames(scene)
+    batch = next(iter(PrefetchLoader(
+        rgb[:S10_BATCH], depth[:S10_BATCH], [np.eye(4)] * S10_BATCH,
+        batch_size=S10_BATCH, normalize=False, transform=transform,
+        device="cuda")))
+    args = (batch.canvas, batch.z_mm, batch.rgb_pts, batch.pose_tf,
+            batch.sample_idx, torch.ones(S10_BATCH, dtype=torch.bool,
+                                         device="cuda"))
+    for routing in ("all_gather", "all_to_all"):
+        fusion = ShardedFusion(
+            virtual, gs=mc.gs, cs=mc.cs, vh=mc.vh, feat_dim=FEAT,
+            capacity=mc.capacity, calib_mat=mc.calib_matrix(),
+            image_hw=(h, w), lseg_apply=apply, min_depth=mc.min_depth,
+            max_depth=mc.max_depth, half_res_apply=True, transport="canvas",
+            payload_routing=routing)
+        with torch.no_grad():
+            fusion.step(*args)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fusion.step(*args)
+                synced = None
+            except RuntimeError as e:
+                synced = str(e).splitlines()[0]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            payloads = fusion.payloads(*args)
+            sent = sum(t.numel() * t.element_size()
+                       for p in payloads for t in p)
+            received = sum(t.numel() * t.element_size()
+                           for p in fusion.exchange(payloads)[0]
+                           for t in p)
+            copy_ms = time_ms(lambda: fusion.exchange(payloads))
+            copy_dev = device_ms(lambda: fusion.exchange(payloads))
+        checks[f"(e) a warm 4-shard {routing} step makes no host sync"] = \
+            synced is None
+        numbers[routing] = dict(payload_bytes=sent, received_bytes=received,
+                                exchange_ms=copy_ms,
+                                exchange_device_ms=copy_dev)
+        print(f"  (e) {routing}: warm step under set_sync_debug_mode("
+              f"'error') {'passed' if synced is None else synced}; payload "
+              f"{sent} bytes a step from the shards, {received} bytes "
+              f"fused after the exchange (features f32 again); exchange "
+              f"{copy_ms:.3f} ms (CUDA events), device {copy_dev:.3f} ms "
+              f"(profiler); {numbers['card']}")
+        del fusion, payloads
+    del batch, args
+    torch.cuda.empty_cache()
+
+    # (g) the port's dry run of the sharded program at tiny shapes (it
+    # raises on a failure)
+    numbers["dryrun"] = dryrun_multichip(S10_SHARDS,
+                                         devices=["cuda:0"] * S10_SHARDS)
+    numbers["scatter_rows"] = scatter
+    print(f"  slice 10 build phase: {time.perf_counter() - t_phase:.1f} s "
+          "wall")
+    return numbers
+
+
+def sharded_query_run(enc, scene: Path, k7_row, checks: dict) -> dict:
+    """Slice 10's query: ``VLMap.index_map_sharded`` on the slice-1 map
+    over 4 virtual shards against one K7 launch with the same flags, and
+    ``sharded_score_argmax`` at 1e6 x 512, C = 22, against one K7 launch
+    on every row; sets K7's ``slice10_launches`` and times the sharded K7
+    against the single launch."""
+    import torch
+
+    from avlmaps_torch.config import load_config
+    from avlmaps_torch.map.vlmap import VLMap
+    from avlmaps_torch.ops import similarity as sim
+    from avlmaps_torch.parallel import make_mesh, sharded_score_argmax
+
+    virtual = make_mesh(devices=["cuda:0"] * S10_SHARDS)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(10)
+    x = torch.randn(N_VOX, FEAT, generator=g, device="cuda")
+    t = torch.randn(22, FEAT, generator=g, device="cuda")
+    vm = VLMap(load_config().map_config, clip_encoder=enc, device="cuda")
+    if not vm.load_map(scene):
+        raise AssertionError("the slice-1 map did not load")
+    k7_row["fn"].launches = 0
+    mask = vm.index_map_sharded(virtual, "chair")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = sharded_score_argmax(virtual, x, t)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    k7_row["slice10_launches"] = k7_row["fn"].launches
+
+    text = torch.from_numpy(enc.get_text_feats_multiple_templates(
+        ["chair", "other"])).cuda()
+    want = sim.score_argmax(torch.from_numpy(vm.grid_feat).cuda(), text,
+                            normalize_map=False, normalize_text=False)
+    want = want.cpu().numpy() == 0
+    one = sim.score_argmax(x, t, True, True).cpu().numpy()
+    checks["(d) index_map_sharded == one K7 launch, every row"] = \
+        np.array_equal(mask, want)
+    checks["(d) sharded_score_argmax 1e6 x 512, C = 22 == one K7 launch, "
+           "every row"] = np.array_equal(labels, one)
+    per = N_VOX // S10_SHARDS
+    shards = [x[i * per:(i + 1) * per] for i in range(S10_SHARDS)]
+
+    def sharded():
+        return [sim.score_argmax(s, t, True, True) for s in shards]
+
+    def single():
+        return sim.score_argmax(x, t, True, True)
+
+    out = dict(index_voxels=int(mask.sum()), map_voxels=len(mask),
+               sharded_ms=time_ms(sharded), sharded_device_ms=device_ms(
+                   sharded, per_call=S10_SHARDS), single_ms=time_ms(single),
+               single_device_ms=device_ms(single, per_call=1),
+               sharded_call_host_ms=host_ms,
+               launches=k7_row["slice10_launches"], card=card_line())
+    print(f"  (d) index_map_sharded('chair'): {out['index_voxels']} of "
+          f"{out['map_voxels']} voxels, equal to one K7 launch; "
+          f"sharded_score_argmax at 1e6 x 512, C=22 on 4 shards equal to "
+          f"one launch on every row; K7 launches {out['launches']}")
+    print(f"  (f) K7 on 4 row shards {out['sharded_ms']:.4f} ms (device "
+          f"{out['sharded_device_ms']:.4f}) against one launch "
+          f"{out['single_ms']:.4f} ms (device {out['single_device_ms']:.4f}); "
+          f"sharded_score_argmax with its label copy {host_ms:.1f} ms on the "
+          f"host clock; {out['card']}")
+    del x, t, shards
+    torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -3305,6 +4131,14 @@ def main() -> int:
               f"batch {MF_BATCH}:")
         mf_scene, mf_rows, s9_checks = multi_floor_run(
             net, Path(tmp), rows, k5_row, vit_rows)
+        print(f"slice 10: the row-sharded build: VLMapBuilder(mesh=) on the "
+              f"slice-1 scene over the card and over {S10_SHARDS} virtual "
+              f"shards of it, batch {S10_BATCH}; all_to_all; the "
+              f"multi-floor build on {S10_SHARDS} shards; a warm sharded "
+              "step:")
+        s10_checks = {}
+        s10 = sharded_build_run(net, scene, mf_scene, Path(tmp), rows,
+                                k5_row, s10_checks)
         del net
         torch.cuda.empty_cache()
         print("slice 2: CLIP ViT-B/32 text tower, card vs CPU:")
@@ -3335,6 +4169,16 @@ def main() -> int:
         if not all(s9_checks.values()):
             raise AssertionError("slice 9: the multi-floor or robot path "
                                  "failed")
+        print(f"slice 10: index_map_sharded and sharded_score_argmax (K7 on "
+              f"{S10_SHARDS} row shards):")
+        s10["query"] = sharded_query_run(enc, scene, rows[5], s10_checks)
+        for name, ok in s10_checks.items():
+            print(f"  {'pass' if ok else 'FAIL'}: {name}")
+        if not all(s10_checks.values()):
+            raise AssertionError("slice 10: the sharded build or query "
+                                 "failed")
+        thr_rows += s10.pop("scatter_rows")
+        print(json.dumps({"slice10": s10}))
         thr_rows += mf_rows
     launches = {r["name"]: r["launches"] for r in rows[4:]}
     print(f"  slice 2 launches: {launches}")
@@ -3349,6 +4193,7 @@ def main() -> int:
              "slice7_launches": "slice7_launches",
              "slice8_launches": "slice8_launches",
              "slice9_launches": "slice9_launches",
+             "slice10_launches": "slice10_launches",
              "library_device_ms": "library_dev", "runs": "runs",
              "real_step": "real_step"}
     table = [{**{k: r[k] for k in keys},

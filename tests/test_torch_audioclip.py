@@ -273,8 +273,15 @@ def test_checkpoint_loader_refuses_what_it_cannot_read(tiny, tmp_path):
     partial = {k: v for k, v in sd.items() if not k.startswith("audio.att5")}
     with pytest.raises(KeyError, match="lacks 8 keys"):
         tport.state_dict_from_reference(partial, AudioClipConfig.tiny())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tport.load_audioclip_checkpoint(str(tmp_path / "audioclip.msgpack"))
+    # a pre-ported .msgpack needs its config sidecar (the JAX loader's
+    # message; tests/test_torch_msgpack.py loads a complete pair)
+    path = tmp_path / "audioclip.msgpack"
+    path.write_bytes(b"\x80")  # an empty msgpack map
+    with pytest.raises(FileNotFoundError) as terr:
+        tport.load_audioclip_checkpoint(str(path))
+    with pytest.raises(FileNotFoundError) as jerr:
+        load_audioclip_checkpoint_with_config(str(path))
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_seeded_weights_fill_every_parameter():

@@ -223,14 +223,28 @@ def test_packed_scene_builds_like_jax(tmp_path, nets, canvas):
 
 @pytest.mark.parametrize("kwargs", [dict(transport="bogus"),
                                     dict(sampling="bogus"),
-                                    dict(mesh=object())])
+                                    dict(mesh=2)])
 def test_unported_options_raise(tmp_path, nets, kwargs):
-    """The multi-device build is not ported; unknown transports and
-    samplers are refused."""
-    scene = write_synthetic_scene(tmp_path / "s", n_frames=1, h=H, w=W)
-    exc = NotImplementedError if "mesh" in kwargs else ValueError
-    with pytest.raises(exc):
-        _torch_builder(scene, nets[2], False, n=1, **kwargs)
+    """Unknown transports and samplers are refused; the multi-device
+    build (``mesh``, here two CPU shards) runs and equals the
+    single-device build's voxels (tests/test_torch_parallel.py holds it
+    to the JAX package's)."""
+    scene = write_synthetic_scene(tmp_path / "s", n_frames=2, h=H, w=W)
+    if "mesh" not in kwargs:
+        with pytest.raises(ValueError):
+            _torch_builder(scene, nets[2], False, n=1, **kwargs)
+        return
+    from avlmaps_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=["cpu"] * kwargs["mesh"])
+    m = _torch_builder(scene, nets[2], False, n=2, mesh=mesh
+                       ).create_mobile_base_map(save_every=0, progress=False)
+    shutil.rmtree(scene / "vlmap")
+    one = _torch_builder(scene, nets[2], False, n=2
+                         ).create_mobile_base_map(save_every=0,
+                                                  progress=False)
+    assert m.num_occupied > 0 and m.mapped_iters == {0, 1}
+    np.testing.assert_array_equal(m.occupied_ids >= 0, one.occupied_ids >= 0)
 
 
 # ------------------------------------------------ the other transports --

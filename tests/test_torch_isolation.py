@@ -11,7 +11,9 @@ REPO = Path(__file__).resolve().parents[1]
 PACKAGE = sorted((REPO / "avlmaps_torch").rglob("*.py"))
 SOURCES = PACKAGE + [REPO / "chip_smoke.py"] + sorted(
     (REPO / "probes").glob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "flax", "avlmaps_tpu", "tools")
+# msgpack: the card's machine has neither it nor flax (utils/msgpack.py
+# reads flax's files with the standard library)
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "avlmaps_tpu", "tools")
 
 
 def _imports(path: Path):
@@ -71,7 +73,22 @@ def test_sources_cover_the_package():
             "ops/similarity.py", "ops/heatmap.py", "ops/delivery.py",
             "ops/pooling.py", "ops/morphology.py",
             "utils/category_matching.py", "map/map_base.py",
-            "map/vlmap.py", "map/avlmap.py"} <= names
+            "map/vlmap.py", "map/avlmap.py", "parallel/__init__.py",
+            "parallel/sharded.py", "parallel/dryrun.py", "utils/msgpack.py",
+            "utils/llm.py"} <= names
+
+
+def test_make_mesh_needs_a_card_or_explicit_devices(monkeypatch):
+    from avlmaps_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=["cpu"] * 2)
+    assert mesh.devices == (torch.device("cpu"),) * 2 and mesh.size == 2
+    assert make_mesh(1, devices=["cpu"] * 2).size == 1
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        make_mesh(devices=["cuda:0"] * 4)
 
 
 def _no_card(monkeypatch):

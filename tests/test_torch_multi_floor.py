@@ -244,8 +244,18 @@ def test_packed_matches_decoded(tmp_path, nets):
 
 
 def test_mesh_raises_and_missing_map(tmp_path, nets):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _torch_builder(tmp_path, [np.eye(4)], nets, mesh=object())
+    """The multi-device build runs on two CPU shards (its grid padded to
+    an even gs; tests/test_torch_parallel.py holds it to the JAX
+    package's), and a missing map does not load."""
+    from avlmaps_torch.parallel import make_mesh
+
+    scene, pose_tfs = write_scene(tmp_path / "s")
+    b = _torch_builder(scene, pose_tfs, nets,
+                       mesh=make_mesh(devices=["cpu"] * 2))
+    b.probe_bounds(sample_stride=4)
+    f, p, w, o, r = b.create_global_map(progress=False)
+    assert p.shape[0] > 0 and o.shape[0] % 2 == 0
+    assert o.shape[0] >= b.grid_dims()[0]
     m = tmf.VLMapMultiFloor(_configure(load_config()), device="cpu")
     assert not m.load_map(tmp_path)
 

@@ -91,12 +91,23 @@ def test_init_categories_and_index_map_agree(scene):
         assert got.any()
 
 
-def test_index_map_needs_categories_first():
+def test_index_map_needs_categories_first(scene):
+    """index_map with the categories asks for them first;
+    index_map_sharded needs none: on two CPU shards it gives the JAX
+    package's mask on two devices, and index_map's without categories."""
+    from avlmaps_torch.parallel import make_mesh
+    from avlmaps_tpu.parallel import make_mesh as jax_make_mesh
+
     vm = VLMap(_configure(load_config()).map_config, device="cpu")
     with pytest.raises(Exception, match="init_categories"):
         vm.index_map("chair")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        vm.index_map_sharded(None, "chair")
+    _, jvm, tvm = scene
+    for name in ("chair", "sofa"):
+        got = tvm.index_map_sharded(make_mesh(devices=["cpu"] * 2), name)
+        np.testing.assert_array_equal(
+            got, jvm.index_map_sharded(jax_make_mesh(2), name))
+        np.testing.assert_array_equal(
+            got, tvm.index_map(name, with_init_cat=False))
 
 
 def test_customize_obstacle_map_and_get_pos_agree(scene):
