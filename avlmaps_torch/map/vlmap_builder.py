@@ -365,6 +365,9 @@ class VLMapBuilder:
     ``lseg_apply`` is one callable or one per mesh entry, ``sampling=
     "device"`` warns and samples on the host, and ``device`` is the mesh's
     first.
+
+    The map is saved in ``map_save_dir`` (default ``<data_dir>/vlmap``),
+    and a map saved there is resumed.
     """
 
     def __init__(self, data_dir, map_config, pose_path, rgb_paths,
@@ -374,7 +377,8 @@ class VLMapBuilder:
                  mesh=None, half_res_apply: bool = False,
                  transport: Optional[str] = None, packed_path=None,
                  sampling: str = "host",
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 map_save_dir=None):
         self.mesh = mesh
         self.device = (mesh.devices[0] if mesh is not None
                        else resolve_device(device))
@@ -401,7 +405,8 @@ class VLMapBuilder:
         self.packed_path = packed_path
         self.seed = seed
         self.rng = np.random.default_rng(seed)
-        self.map_save_dir = self.data_dir / "vlmap"
+        self.map_save_dir = (Path(map_save_dir) if map_save_dir is not None
+                             else self.data_dir / "vlmap")
         self.map_save_path = self.map_save_dir / "vlmaps.h5df"
 
     def create_mobile_base_map(self, save_every: int = 100,

@@ -90,14 +90,18 @@ class VLMapBuilderMultiFloor:
     padded up to a multiple of the mesh size while validity stays bounded
     by the probed extent, so the sharded build fuses the single-device
     build's points; ``lseg_apply`` is one callable or one per mesh entry,
-    and ``device`` is the mesh's first."""
+    and ``device`` is the mesh's first.
+
+    The map is saved in ``map_save_dir`` (default
+    ``<data_dir>/vlmap_multi_floor``)."""
 
     def __init__(self, data_dir, map_config, rgb_paths: Sequence,
                  depth_paths: Sequence, pose_tfs: Sequence[np.ndarray],
                  lseg_apply: Optional[Callable] = None, feat_dim: int = 512,
                  batch_size: int = 8, height_margin_m: float = 1.0,
                  seed: int = 0, mesh=None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 map_save_dir=None):
         self.mesh = mesh
         self.device = (mesh.devices[0] if mesh is not None
                        else resolve_device(device))
@@ -113,7 +117,8 @@ class VLMapBuilderMultiFloor:
         self.batch_size = batch_size
         self.height_margin_m = height_margin_m
         self.rng = np.random.default_rng(seed)
-        self.map_save_dir = self.data_dir / "vlmap_multi_floor"
+        self.map_save_dir = (Path(map_save_dir) if map_save_dir is not None
+                             else self.data_dir / "vlmap_multi_floor")
         self.map_save_path = self.map_save_dir / "vlmaps_multi_floor.h5df"
         self.pcd_min: Optional[np.ndarray] = None
         self.pcd_max: Optional[np.ndarray] = None

@@ -106,6 +106,22 @@ class AudioClip(nn.Module):
         with full_f32():
             return scale * af @ tf.T
 
+    def tri_modal(self, audio: torch.Tensor, images: torch.Tensor,
+                  token_ids: torch.Tensor):
+        """All three pairwise logit matrices (reference AudioCLIP.forward,
+        audioclip.py:139-196): (audio x image, audio x text, image x text),
+        each pair with its clamped scale."""
+        def norm(z):
+            return z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+
+        af = norm(self.encode_audio(audio))
+        vf = norm(self.encode_image(images))
+        tf = norm(self.encode_text(token_ids))
+        s_ai, s_at, s_it = (torch.clamp(torch.exp(s), 1.0, 100.0) for s in (
+            self.logit_scale_ai, self.logit_scale_at, self.logit_scale))
+        with full_f32():
+            return s_ai * af @ vf.T, s_at * af @ tf.T, s_it * vf @ tf.T
+
 
 class AudioClipEncoder:
     """AudioCLIP on ``device`` (default ``"cuda"``; raises without a card)

@@ -226,6 +226,18 @@ def mha_oneshot_2d_ref(qkv2d: torch.Tensor, b: int, t: int, n_heads: int, *,
     return out.permute(0, 2, 1, 3).reshape(m, w)
 
 
+def mha_oneshot(qkv: torch.Tensor, n_heads: int, *, scale: float,
+                t_real: Optional[int] = None) -> torch.Tensor:
+    """Multi-head self-attention on the fused (B, T, 3W) qkv tensor, laid
+    out [q | k | v] along the last axis (the qkv dense layer's output);
+    returns (B, T, W) with heads merged.  :func:`mha_oneshot_2d` (K2) on
+    its (B*T, 3W) view."""
+    b, t, three_w = qkv.shape
+    return mha_oneshot_2d(qkv.reshape(b * t, three_w), b, t, n_heads,
+                          scale=scale, t_real=t_real
+                          ).reshape(b, t, three_w // 3)
+
+
 def mha_oneshot_2d(qkv2d: torch.Tensor, b: int, t: int, n_heads: int, *,
                    scale: float, t_real: Optional[int] = None) -> torch.Tensor:
     """Multi-head self-attention on the (B*T, 3W) qkv matrix; returns

@@ -157,8 +157,30 @@
    the slice-1 map and ``sharded_score_argmax`` at 1e6 x 512, C = 22,
    over 4 shards, each equal to one K7 launch on every row, and the
    sharded K7's ms against one launch.  K1-K5 and K7 get
-   ``slice10_launches``; the numbers print as one JSON line.
-10. Prints the kernel table as one JSON line, then the card line, and last
+   ``slice10_launches``; the numbers print as one JSON line.  In the
+   same phase, the LSeg forward of 16 crops against that of their first
+   4 as shipped (``dpt_batch_check``): the outputs' max |d| and the
+   first call to differ printed, every crop's output independent of the
+   others' at a fixed batch held (``probes/dpt_batch.py`` times the
+   candidates that would remove the batch dependence).
+10. Slice 11, recall parity at full width (``avlmaps_torch.tools.
+   recall_parity``), last: the reference's LSeg network at ViT-L/16
+   width (seeded) in f32 with the host-loop fusion against the port's
+   ``VLMapBuilder`` with the same weights in bf16 (K1-K4) and in f32 on
+   the tool's synthetic scene at 8 frames of 480^2 (the medium map,
+   6,400 points a frame, batch 2); each port map scored by K7 (equal to
+   its plain version), the oracle's by numpy; voxel IoU >= 0.97 on both
+   rows, f32 top-1 agreement > 0.99; the bf16 row's feature cosine mean
+   >= 0.99997 and min >= 0.995, and every bf16 disagreement a near tie
+   (the oracle's margin below twice the f32 row's largest |score d|);
+   bf16 builds with a planted fault in one block (K3 without its MLP
+   term; K2 without its softmax scale) must each fail those bf16 gates;
+   K4 on the bf16 build's first step (12,800 rows, S = 32,769) against
+   its plain version and bitwise against K5, with its times,
+   ``index_add_`` and bound in the ``more_shapes`` line;
+   K1-K4 and K7 get ``slice11_launches``; then ``loc_eval`` on the card
+   and the CPU (medians within 1e-3 m).
+11. Prints the kernel table as one JSON line, then the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no result line.
@@ -2783,14 +2805,12 @@ def multi_floor_run(net, tmp: Path, rows, k5_row, vit_rows):
     assert mc.cell_size == 0.05 and mc.capacity == CAPACITY
 
     def builder(apply, device, out=None):
-        b = VLMapBuilderMultiFloor(scene, mc, rgb, depth, tfs,
-                                   lseg_apply=apply, feat_dim=FEAT,
-                                   batch_size=MF_BATCH, seed=0,
-                                   device=device)
-        if out is not None:  # keep the ViT-L build's file in the scene
-            b.map_save_dir = tmp / out
-            b.map_save_path = b.map_save_dir / "vlmaps_multi_floor.h5df"
-        return b
+        # out: another directory, to keep the ViT-L build's file in the
+        # scene
+        return VLMapBuilderMultiFloor(
+            scene, mc, rgb, depth, tfs, lseg_apply=apply, feat_dim=FEAT,
+            batch_size=MF_BATCH, seed=0, device=device,
+            map_save_dir=None if out is None else tmp / out)
 
     # bounds: the probe (f32 points, f64 pose) against numpy f64
     b = builder(net, "cuda")
@@ -3010,12 +3030,10 @@ def _s10_builder(apply, scene: Path, out: Path, mesh=None,
     from avlmaps_torch.map.vlmap_builder import VLMapBuilder
 
     mc, tfs = _map_setup()
-    b = VLMapBuilder(scene, mc, scene / "poses.txt", *_frames(scene), *tfs,
-                     lseg_apply=apply, feat_dim=FEAT, batch_size=batch,
-                     seed=0, half_res_apply=True, device="cuda", mesh=mesh)
-    b.map_save_dir = out
-    b.map_save_path = out / "vlmaps.h5df"
-    return b
+    return VLMapBuilder(scene, mc, scene / "poses.txt", *_frames(scene),
+                        *tfs, lseg_apply=apply, feat_dim=FEAT,
+                        batch_size=batch, seed=0, half_res_apply=True,
+                        device="cuda", mesh=mesh, map_save_dir=out)
 
 
 def _s10_build(apply, scene: Path, out: Path, mesh=None,
@@ -3056,45 +3074,43 @@ def real_cards_run(net, scene: Path, tmp: Path, checks: dict) -> None:
               S10_BF16_TOL, checks)
 
 
-class _ShardInputs:
-    """The first ``n`` calls of parallel/sharded.py's ``fuse_points`` (one
-    step's shards, in device order) record clones of their inputs, as
-    ``_fuse_owned`` hands them over; the fusion goes on unchanged."""
+class _FuseInputs:
+    """The first ``n`` calls of ``module.fuse_points`` (parallel/
+    sharded.py's: one step's shards, in device order; map/
+    vlmap_builder.py's: the first steps) record clones of their inputs,
+    as they are handed over; the fusion goes on unchanged."""
 
-    def __init__(self, n: int):
-        self.n, self.got = n, []
+    def __init__(self, n: int, module):
+        self.n, self.module, self.got = n, module, []
 
     def __enter__(self):
-        from avlmaps_torch.parallel import sharded
-
-        self.fuse = fuse = sharded.fuse_points
+        self.fuse = fuse = self.module.fuse_points
 
         def capture(state, *args, **kw):
             if len(self.got) < self.n:
                 self.got.append([a.clone() for a in args])
                 self.shape = dict(gs=kw["gs"], vh=kw["vh"],
-                                  n_rows=kw["n_rows"],
+                                  n_rows=kw.get("n_rows"),
                                   capacity=state.accum.shape[0] - 1)
             return fuse(state, *args, **kw)
 
-        sharded.fuse_points = capture
+        self.module.fuse_points = capture
         return self
 
     def __exit__(self, *exc):
-        from avlmaps_torch.parallel import sharded
-
-        sharded.fuse_points = self.fuse
+        self.module.fuse_points = self.fuse
 
 
 def shard_scatter_check(label: str, shards, row, *, gs: int, vh: int,
                         n_rows: int, capacity: int, launches: int) -> dict:
-    """K4 or K5 (``row``) at a sharded step's shape: each shard's captured
-    inputs sorted into a fresh shard state (``n_rows`` of ``gs`` rows,
+    """K4 or K5 (``row``) at a step's shape: each shard's captured inputs
+    sorted into a fresh shard state (``n_rows`` of ``gs`` rows,
     ``capacity`` slots, so the points the shard does not own fill the
-    trash run), held against the plain version at 1e-4 + 1e-5 x |plain|
-    and bitwise against the other kernel on the same batch; each shard's
-    device time, and the times, library time and bound on the shard with
-    the most owned rows.  Returns a ``more_shapes`` row."""
+    trash run; ``n_rows`` None and one shard: a single-device step's),
+    held against the plain version at 1e-4 + 1e-5 x |plain| and bitwise
+    against the other kernel on the same batch; each shard's device time,
+    and the times, library time and bound on the shard with the most
+    owned rows.  Returns a ``more_shapes`` row."""
     import torch
 
     from avlmaps_torch.ops import segment_scatter as ss
@@ -3171,7 +3187,9 @@ def shard_scatter_check(label: str, shards, row, *, gs: int, vh: int,
     lib = lambda: acc.index_add_(0, idx, update)  # noqa: E731
     before = row["fn"].launches
     out = {**{k: row[k] for k in ("name", "route", "source", "replaces")},
-           "shape": (f"{label}: {sb.slots.numel()} rows a shard, "
+           "shape": (f"{label}: {sb.slots.numel()} rows a step, "
+                     f"S={capacity + 1}" if n_rows is None else
+                     f"{label}: {sb.slots.numel()} rows a shard, "
                      f"S={capacity + 1}, shard {j} of {len(shards)}"),
            "launches": launches, "max_abs_err": max(errs),
            "ms": time_ms(fn), "device_ms": dev_ms[j],
@@ -3328,16 +3346,22 @@ def forward_batch_probe(net, crops, per: int) -> dict:
         net(crops, upsample=False)
     part, out_p = run(crops[:per])
     whole, out_w = run(crops, part.calls)
+    # the first call whose output differs, or whose name does (a decoder
+    # run in micro-batches makes more calls on more crops: the sequences
+    # part after the first micro-batch, and no call is named then)
     first = next((i for i, (a, b) in enumerate(zip(whole.calls, part.calls))
-                  if a[2] != b[2]), None)
+                  if a[0] != b[0] or a[2] != b[2]), None)
+    diverged = first is not None and \
+        whole.calls[first][0] != part.calls[first][0]
     res = dict(calls=len(part.calls),
                same_calls=[c[0] for c in whole.calls]
                == [c[0] for c in part.calls],
                output_d=float((out_w[:per].float() - out_p.float())
                               .abs().max()),
                cudnn_benchmark=torch.backends.cudnn.benchmark,
-               first_call=first)
-    if first is not None:
+               first_call=None if diverged else first,
+               sequences_part_at=first if diverged else None)
+    if first is not None and not diverged:
         name, ins, _ = part.calls[first]
         b = run(crops[:per], want=first)[0].kept
         a = run(crops, part.calls, first)[0].kept
@@ -3352,6 +3376,29 @@ def forward_batch_probe(net, crops, per: int) -> dict:
         out_s = net(swapped, upsample=False)
     res["crops_independent"] = torch.equal(out_s[1:], out_w[1:])
     return res
+
+
+def dpt_batch_check(net, crops, per: int, checks: dict) -> dict:
+    """The LSeg forward of all ``crops`` against that of their first
+    ``per`` alone, as shipped (:func:`forward_batch_probe`): its final max
+    |d| and first differing call printed (the dependence is a deviation
+    kept on purpose; ``probes/dpt_batch.py`` times the candidates that
+    would remove it), and a failure if a crop's output depends on
+    another's at a fixed batch."""
+    import torch
+
+    with torch.no_grad():
+        probe = forward_batch_probe(net, crops, per)
+    print(f"  the DPT as shipped: {len(crops)} crops against their first "
+          f"{per}: output max |d| {probe['output_d']:.3e}; first call to "
+          f"differ {probe['first_call']} {probe.get('first_call_name')} "
+          f"(inputs equal {probe.get('first_call_inputs_equal')}, shapes "
+          f"{probe.get('first_call_input_shapes')}, max |d| "
+          f"{probe.get('first_call_d')}); crops independent "
+          f"{probe['crops_independent']}")
+    checks["no crop's LSeg output depends on another crop's at a fixed "
+           "batch"] = probe["crops_independent"]
+    return probe
 
 
 def sharded_build_run(net, scene: Path, mf_scene: Path, tmp: Path, rows,
@@ -3383,6 +3430,7 @@ def sharded_build_run(net, scene: Path, mf_scene: Path, tmp: Path, rows,
     from avlmaps_torch.models.lseg.window import plan_windows
     from avlmaps_torch.parallel import make_mesh
     from avlmaps_torch.parallel.dryrun import dryrun_multichip
+    from avlmaps_torch.parallel import sharded
     from avlmaps_torch.parallel.sharded import ShardedFusion
     from avlmaps_torch.pipeline.loader import PrefetchLoader
     from avlmaps_torch.pipeline.transport import make_canvas_transform
@@ -3425,21 +3473,8 @@ def sharded_build_run(net, scene: Path, mf_scene: Path, tmp: Path, rows,
           f"{d_vit:.3e}, output max |d| "
           f"{numbers['forward_batch_dependence']['output']:.3e}")
     del whole, parts, vit, vit_parts
-    probe = forward_batch_probe(net, crops, per_shard * CROPS)
-    numbers["forward_batch_dependence"].update(probe)
-    print(f"  the same forward call by call from the decoder on "
-          f"({probe['calls']} torch calls, crops 0-{per_shard * CROPS - 1}, "
-          f"cudnn.benchmark {probe['cudnn_benchmark']}): first output to "
-          f"differ is call {probe['first_call']} "
-          f"{probe.get('first_call_name')} on inputs "
-          f"{probe.get('first_call_input_shapes')} (inputs equal: "
-          f"{probe.get('first_call_inputs_equal')}), max |d| "
-          f"{probe.get('first_call_d')}; final output max |d| "
-          f"{probe['output_d']:.3e}; crop 0 replaced, crops 1-"
-          f"{S10_BATCH * CROPS - 1} bit for bit: "
-          f"{probe['crops_independent']}")
-    checks["(a) no crop's LSeg output depends on another crop's at a "
-           "fixed batch"] = probe["crops_independent"]
+    numbers["forward_batch_probe"] = dpt_batch_check(
+        net, crops, per_shard * CROPS, checks)
     del crops
 
     # (a) a mesh of the real card and 4 virtual shards: the loop on the host
@@ -3501,7 +3536,7 @@ def sharded_build_run(net, scene: Path, mf_scene: Path, tmp: Path, rows,
     _s10_held("(a) mesh4 against the batch-8 build", maps["mesh4"], ref,
               None, checks)
     for label, mesh in (("mesh1", make_mesh(1)), ("mesh4", virtual)):
-        with _ShardInputs(mesh.size) as step1:
+        with _FuseInputs(mesh.size, sharded) as step1:
             m, _, _ = build(label + "_f32", mesh, payload_dtype=torch.float32)
         _s10_held(f"(a) {label} f32 wire", _arrays(m), refs[label],
                   S10_F32_TOL, checks)
@@ -3561,12 +3596,10 @@ def sharded_build_run(net, scene: Path, mf_scene: Path, tmp: Path, rows,
         mf_scene, mc, sorted((mf_scene / "rgb").glob("*.png")),
         sorted((mf_scene / "depth").glob("*.npy")), two_floor_poses(),
         lseg_apply=net, feat_dim=FEAT, batch_size=MF_BATCH * S10_SHARDS,
-        seed=0, mesh=virtual)
-    mb.map_save_dir = out / "multi_floor"
-    mb.map_save_path = mb.map_save_dir / "vlmaps_multi_floor.h5df"
+        seed=0, mesh=virtual, map_save_dir=out / "multi_floor")
     _zero(counted)
     t0 = time.perf_counter()
-    with _ShardInputs(S10_SHARDS) as mf_step1:
+    with _FuseInputs(S10_SHARDS, sharded) as mf_step1:
         got = mb.create_global_map(progress=False)
     counts = _counts(counted)
     gs9, gs = mf_ref[4].shape[0], got[3].shape[0]
@@ -4031,6 +4064,248 @@ def robot_run(enc, scene: Path, mf_scene: Path, tmp: Path, score_rows,
           f"{time.perf_counter() - t_phase:.1f} s wall")
 
 
+# slice 11, recall parity at full width: write_synthetic_scene's bands on 8
+# frames of 480^2, one LSeg window a frame, the medium mode's map (gs 128,
+# cs 0.05, capacity 32,768) at 480^2 / 36 = 6,400 points a frame, batch 2
+# (2 crops a forward, M = 1802)
+S11_FRAMES = 8
+S11_HW = 480
+S11_RATE = 36
+S11_BATCH = 2
+# the bf16 row's gates.  A near tie: the oracle's top-1 margin below this
+# many times the f32 row's largest |score d| (a bound that the bf16 map
+# does not move).  The feature cosine mean's limit sits between the sound
+# bf16 build (0.9999858; f32 0.9999941) and the planted faults of
+# S11_FAULTS (0.9999643 and 0.9999134), all on an NVIDIA H100 80GB HBM3 at
+# 700 W.  The min (sound 0.99895, f32 0.99898, the faults 0.99890 and
+# 0.99889) moves with neither the precision nor those faults: its limit
+# only catches a gross fault.
+S11_TIE_FACTOR = 2.0
+S11_COS_MEAN = 0.99997
+S11_COS_MIN = 0.995
+# the controls: planted faults of the bf16 ViT's kernels, each in block
+# S11_FAULT_BLOCK of every forward (the other blocks and calls run as
+# shipped); the smoke runs S11_FAULTS, probes/recall_phase.py any of them
+S11_FAULT_BLOCK = LAYERS // 2
+
+
+def _drop_mlp(k3, x2d, *args, **kw):
+    return x2d  # the block's MLP term lost
+
+
+def _no_softmax_scale(k2, *args, **kw):
+    return k2(*args, **dict(kw, scale=1.0))  # logits 8x too large
+
+
+def _lose_last_tile(k1, x2d, *args, **kw):
+    out = k1(x2d, *args, **kw)
+    out[-(x2d.shape[0] % 128 or 128):] = 0  # the rows past the last
+    return out                              # full 128-row tile
+
+
+PLANTED_FAULTS = {
+    "K3 drops its MLP term": ("ln_mlp_residual", _drop_mlp),
+    "K2 without its softmax scale": ("mha_oneshot_2d", _no_softmax_scale),
+    "K1 loses its last partial row tile": ("ln_matmul", _lose_last_tile),
+}
+# the faults the bf16 gates must reject; the last one above moves the
+# map's features too little for them (10 token rows of 1802 in one block)
+S11_FAULTS = tuple(PLANTED_FAULTS)[:2]
+
+
+@contextlib.contextmanager
+def planted_fault(label: str, block: int = S11_FAULT_BLOCK):
+    """One of ``PLANTED_FAULTS`` in the bf16 ViT: the kernel's call in
+    block ``block`` of each forward goes through the fault."""
+    from avlmaps_torch.models.lseg import vit
+
+    name, fault = PLANTED_FAULTS[label]
+    kernel, calls = getattr(vit, name), [0]
+
+    def faulty(*args, **kw):
+        i, calls[0] = calls[0], calls[0] + 1
+        if i % LAYERS == block:
+            return fault(kernel, *args, **kw)
+        return kernel(*args, **kw)
+
+    setattr(vit, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(vit, name, kernel)
+
+
+def _bf16_gates(report: dict, ties: dict) -> dict:
+    return {f"feature cosine mean >= {S11_COS_MEAN}":
+            report["feature_cos_mean"] >= S11_COS_MEAN,
+            f"feature cosine min >= {S11_COS_MIN}":
+            report["feature_cos_min"] >= S11_COS_MIN,
+            "every disagreement a near tie": ties["not_near_ties"] == 0}
+
+
+def recall_parity_run(tmp: Path, rows, checks: dict,
+                      faults=S11_FAULTS) -> dict:
+    """Slice 11: ``avlmaps_torch.tools.recall_parity`` at full width on
+    the card.  The reference's network at ViT-L/16 width (seeded) builds
+    the scene's map with the host-loop fusion in f32 (TF32 off); the
+    port's ``LSegNet`` with the same weights builds it through
+    ``VLMapBuilder``: in f32 (the plain blocks under ``full_f32``, K4),
+    in bf16 (K1-K3 in every block, K4 in the fusion), and in bf16 with
+    each of ``faults`` planted (:func:`planted_fault`).  Each port map is
+    scored by K7 (held to its plain version on that map), the oracle's by
+    numpy, and compared: voxel IoU >= 0.97 on the f32 and bf16 rows, f32 top-1
+    agreement > 0.99; the bf16 row's feature cosine mean and min at
+    least ``S11_COS_MEAN`` and ``S11_COS_MIN`` and every disagreement a
+    near tie (margin below ``S11_TIE_FACTOR`` x the f32 row's largest
+    |score d|); each planted fault of ``S11_FAULTS`` must fail those
+    bf16 gates (any other is printed only).  K1-K4 and
+    K7 are zeroed before and read after each row's path (K1-K3 96 times
+    in the bf16 row, K4 4 times and K7 once in each); rows of ``rows``
+    get ``slice11_launches``.  K4 at this build's shape: the bf16 build's
+    first step (12,800 rows into 32,768 slots) against its plain version
+    and K5 (:func:`shard_scatter_check`).  Then ``loc_eval`` on the card
+    and on the CPU with the same SuperPoint weights: medians within
+    1e-3 m.  Returns the printed numbers, with K4's row under
+    ``scatter_row``."""
+    import torch
+
+    from avlmaps_torch.map import vlmap_builder as vb
+    from avlmaps_torch.models.superpoint import (SuperPointConfig,
+                                                 SuperPointExtractor)
+    from avlmaps_torch.ops.similarity import score_argmax_ref
+    from avlmaps_torch.tools import loc_eval
+    from avlmaps_torch.tools import recall_parity as rp
+
+    t_phase = time.perf_counter()
+    scene = rp.write_synthetic_scene(tmp / "slice11", n_frames=S11_FRAMES,
+                                     h=S11_HW, w=S11_HW)
+    mc, base2cam, base_tf = rp.map_config("medium", S11_HW, S11_HW)
+    mc.depth_sample_rate = S11_RATE
+    mc.max_pts_per_frame = S11_HW * S11_HW // S11_RATE
+    landmarks = ["chair", "table", "sofa", "bed", "plant"]
+    t0 = time.perf_counter()
+    oracle, spec = rp.build_oracle("vitl16", seed=0)
+    nets = {dt: rp.port_network(oracle, spec, "vitl16", "cuda", dt)
+            for dt in (torch.bfloat16, torch.float32)}
+    oracle.to("cuda")
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opos, ofeat = rp.oracle_build_map(oracle, scene, mc, base2cam, base_tf,
+                                      spec.out_dim, S11_BATCH, 0)
+    oracle_s = time.perf_counter() - t0
+    del oracle
+    text = rp.landmark_text_features(landmarks, spec.out_dim)
+    print(f"  set-up (ViT-L/16 oracle on the CPU, two port nets on the "
+          f"card) {setup_s:.1f} s; the oracle's map: {len(opos)} voxels "
+          f"in {oracle_s:.1f} s")
+    counted = rows[:4] + [rows[5]]
+    steps = S11_FRAMES // S11_BATCH
+    numbers = {"card": card_line(), "setup_s": setup_s,
+               "oracle_s": oracle_s, "voxels_oracle": int(len(opos))}
+    tie_tol = None
+    for i, (dt, label, planted) in enumerate((
+            (torch.float32, "f32", None),
+            (torch.bfloat16, "bf16", None),
+            *((torch.bfloat16, f"bf16, {f}", planted_fault(f))
+              for f in faults))):
+        _zero(counted)
+        t0 = time.perf_counter()
+        with planted or contextlib.nullcontext(), \
+                _FuseInputs(1, vb) as step1:
+            m = rp.port_build_map(nets[dt], scene, mc, base2cam, base_tf,
+                                  spec.out_dim, S11_BATCH, 0, "cuda",
+                                  save_dir=tmp / f"slice11_map{i}")
+            report, top1, otop1 = rp.score_and_compare(
+                m.grid_pos, m.grid_feat, opos, ofeat, text, landmarks,
+                "full-width-synthetic", "cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts(counted)
+        if tie_tol is None:  # the f32 row's
+            tie_tol = S11_TIE_FACTOR * rp.near_ties(
+                m.grid_pos, m.grid_feat, top1, opos, ofeat, otop1, text,
+                0.0)["max_score_d"]
+        ties = rp.near_ties(m.grid_pos, m.grid_feat, top1, opos, ofeat,
+                            otop1, text, tie_tol)
+        kernels = dt == torch.bfloat16
+        row = dict(report, **ties, launches=counts, wall_s=wall)
+        numbers[label] = row
+        if planted:
+            gates = _bf16_gates(report, ties)
+            print(f"  {label} (block {S11_FAULT_BLOCK}): "
+                  f"{json.dumps(report)}; disagreements "
+                  f"{ties['disagreements']} ({ties['not_near_ties']} not "
+                  f"near ties at {tie_tol:.3e}); the bf16 gates on it: "
+                  f"{gates}")
+            if label[len("bf16, "):] in S11_FAULTS:
+                checks[f"the bf16 gates reject the planted fault: "
+                       f"{label}"] = not all(gates.values())
+            row["bf16_gates"] = gates
+            continue
+        want = {"ln_matmul": LAYERS * steps * kernels,
+                "mha_oneshot_2d": LAYERS * steps * kernels,
+                "ln_mlp_residual": LAYERS * steps * kernels,
+                "sorted_segment_scatter_add_split": steps,
+                "score_argmax": 1}
+        checks[f"{label}: K1-K3 {want['ln_matmul']} times, K4 once a step, "
+               "K7 once"] = counts == want
+        if kernels:
+            for r in counted:
+                r["slice11_launches"] = r["fn"].launches
+        with torch.no_grad():
+            plain = score_argmax_ref(
+                torch.from_numpy(m.grid_feat).cuda(),
+                torch.from_numpy(text).cuda()).cpu().numpy()
+        row["k7_equals_plain"] = k7_equal = bool(np.array_equal(plain, top1))
+        print(f"  {label} row: {json.dumps(report)}; K7 top-1 equal to its "
+              f"plain version on the map: {k7_equal}; disagreements "
+              f"{ties['disagreements']} ({ties['near_ties']} near ties, "
+              f"{ties['not_near_ties']} not, at a margin of "
+              f"{tie_tol:.3e}; largest |score d| {ties['max_score_d']:.3e})"
+              f"; launches {counts}; build + scoring {wall:.1f} s")
+        checks[f"{label}: K7's top-1 equals its plain version"] = k7_equal
+        checks[f"{label}: voxel IoU >= 0.97"] = report["voxel_iou"] >= 0.97
+        if kernels:
+            for name, ok in _bf16_gates(report, ties).items():
+                checks[f"bf16: {name}"] = ok
+            print(f"  K4 at this build's shape (gs {mc.gs}, capacity "
+                  f"{mc.capacity}), the bf16 build's first step:")
+            numbers["scatter_row"] = shard_scatter_check(
+                "slice 11 bf16 step", step1.got, rows[3],
+                launches=counts["sorted_segment_scatter_add_split"],
+                **step1.shape)
+        else:
+            checks["f32: top-1 agreement > 0.99"] = \
+                report["top1_agreement"] > 0.99
+        del step1
+    del nets
+    torch.cuda.empty_cache()
+
+    # loc_eval on the card and on the CPU, the same seeded SuperPoint
+    cfg = SuperPointConfig(**loc_eval.SEEDED_SUPERPOINT)
+    sp = SuperPointExtractor(cfg, device="cuda")
+    sp_cpu = SuperPointExtractor(cfg, params={
+        k: v.cpu() for k, v in sp.model.state_dict().items()}, device="cpu")
+    t0 = time.perf_counter()
+    card = loc_eval.evaluate_methods(sp, device="cuda")
+    loc_s = time.perf_counter() - t0
+    cpu = loc_eval.evaluate_methods(sp_cpu, device="cpu")
+    for method in ("orb", "superpoint_mnn"):
+        c, h = card[method], cpu[method]
+        ok = (c["failures"] == h["failures"] == 0
+              and abs(c["median_err_m"] - h["median_err_m"]) <= 1e-3)
+        print(f"  loc_eval {method}: card median {c['median_err_m']:.6f} m,"
+              f" mean {c['mean_err_m']:.6f}; CPU median "
+              f"{h['median_err_m']:.6f}, mean {h['mean_err_m']:.6f}")
+        checks[f"loc_eval {method}: card and CPU medians within 1e-3 m"] = \
+            ok
+    numbers["loc_eval"] = {"card": card, "cpu": cpu, "card_s": loc_s}
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"  slice 11 phase {numbers['phase_s']:.1f} s (loc_eval on the "
+          f"card {loc_s:.1f} s); {numbers['card']}")
+    return numbers
+
+
 def ptxas_gate(logs) -> None:
     """Prints each kernel's registers and spill stores from ptxas, and
     ptxas's warnings; fails on a kernel that spills, or on warning C7508
@@ -4180,6 +4455,20 @@ def main() -> int:
         thr_rows += s10.pop("scatter_rows")
         print(json.dumps({"slice10": s10}))
         thr_rows += mf_rows
+        print(f"slice 11: recall parity at full width, {S11_FRAMES} frames "
+              f"of {S11_HW}^2, ViT-L/16 oracle (f32) against the port's "
+              f"build in f32, in bf16 and in bf16 with each of "
+              f"{len(S11_FAULTS)} planted faults, batch {S11_BATCH}; K4 at "
+              "the build's shape; loc_eval on the card and the CPU:")
+        s11_checks = {}
+        s11 = recall_parity_run(Path(tmp), rows, s11_checks)
+        for name, ok in s11_checks.items():
+            print(f"  {'pass' if ok else 'FAIL'}: {name}")
+        if not all(s11_checks.values()):
+            raise AssertionError("slice 11: recall parity or loc_eval "
+                                 "failed")
+        thr_rows.append(s11.pop("scatter_row"))
+        print(json.dumps({"slice11": s11}))
     launches = {r["name"]: r["launches"] for r in rows[4:]}
     print(f"  slice 2 launches: {launches}")
     print(f"position gate: {GATE.n_builds} builds, {GATE.n_steps} fusion "
@@ -4194,6 +4483,7 @@ def main() -> int:
              "slice8_launches": "slice8_launches",
              "slice9_launches": "slice9_launches",
              "slice10_launches": "slice10_launches",
+             "slice11_launches": "slice11_launches",
              "library_device_ms": "library_dev", "runs": "runs",
              "real_step": "real_step"}
     table = [{**{k: r[k] for k in keys},

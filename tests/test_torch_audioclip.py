@@ -207,6 +207,25 @@ def test_tiny_text_tower_and_logits_match_jax(tiny):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-3)
 
 
+def test_tri_modal_matches_jax(tiny):
+    """The three clamped-scale logit matrices (audio x image, audio x
+    text, image x text): the tiny towers' logit tolerance above."""
+    jm, variables, model, _ = tiny
+    r = np.random.default_rng(5)
+    audio = (r.normal(size=(2, 2048)) * 8000).astype(np.float32)
+    img = r.normal(size=(3, 32, 32, 3)).astype(np.float32)
+    tokens = default_tokenizer()(["a dog barking", "glass breaking",
+                                  "rain", "a siren"], 16)
+    want = jm.apply(variables, jnp.asarray(audio), jnp.asarray(img),
+                    jnp.asarray(tokens), method=JaxAudioClip.tri_modal)
+    with torch.no_grad():
+        got = model.tri_modal(torch.from_numpy(audio), torch.from_numpy(img),
+                              torch.from_numpy(tokens))
+    for g, w, shape in zip(got, want, [(2, 3), (2, 4), (3, 4)]):
+        assert g.shape == shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3)
+
+
 def test_full_width_audio_tower_matches_jax(rng):
     """AudioClipConfig()'s ESResNeXt-50 32x4d on an 8192-sample clip (13
     frames)."""

@@ -65,6 +65,22 @@ def test_mha_ref_matches_jax(rng, t_real):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+@pytest.mark.parametrize("t_real", [None, 30])
+def test_mha_oneshot_matches_jax(rng, t_real):
+    # the (B, T, 3W) wrapper over the same kernel: the tolerance above
+    b, t, heads, hd = 2, 37, 4, 16
+    w = heads * hd
+    qkv = rng.normal(size=(b, t, 3 * w)).astype(np.float32)
+    want = jfv.mha_oneshot(jnp.asarray(qkv), heads, scale=1.0 / np.sqrt(hd),
+                           t_real=t_real, interpret=True)
+    before = tfv.mha_oneshot_2d.launches
+    got = tfv.mha_oneshot(_t(qkv), heads, scale=1.0 / np.sqrt(hd),
+                          t_real=t_real)
+    assert tfv.mha_oneshot_2d.launches == before  # CPU: plain version
+    assert got.shape == (b, t, w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
 def test_mha_masked_keys_do_not_leak(rng):
     """With t_real < t, the first t_real rows equal attention over the
     first t_real tokens alone, whatever the pad rows hold."""
