@@ -223,17 +223,20 @@ def make_frame_step_canvas(lseg_apply: Callable, *, gs: int, cs: float,
              z_mm: torch.Tensor, rgb_pts: torch.Tensor, pose: torch.Tensor,
              sample_idx: torch.Tensor,
              frame_valid: torch.Tensor) -> VoxelFusionState:
-        canvas = canvas_u8.to(torch.float32) * (1.0 / 127.5) - 1.0
-        z = z_mm.to(torch.float32) * 1e-3  # (B, N) metres
-        vids, fx, fy, alpha, valid = geometry(z, sample_idx, pose)
-        feats = _canvas_features(lseg_apply, lseg_eval, canvas, fx, fy,
-                                 base_size, crop_size, half_res_apply)
-        valid = valid & frame_valid[:, None]
+        with record_function("build.geometry"):
+            z = z_mm.to(torch.float32) * 1e-3  # (B, N) metres
+            vids, fx, fy, alpha, valid = geometry(z, sample_idx, pose)
+            valid = valid & frame_valid[:, None]
+        with record_function("build.lseg"):
+            canvas = canvas_u8.to(torch.float32) * (1.0 / 127.5) - 1.0
+            feats = _canvas_features(lseg_apply, lseg_eval, canvas, fx, fy,
+                                     base_size, crop_size, half_res_apply)
         d = feats.shape[-1]
-        return fuse_points(
-            state, vids.reshape(-1), feats.reshape(-1, d),
-            rgb_pts.to(torch.float32).reshape(-1, 3), alpha.reshape(-1),
-            valid.reshape(-1), gs=gs, vh=vh, dedup_scatter=dedup_scatter)
+        with record_function("build.fuse"):
+            return fuse_points(
+                state, vids.reshape(-1), feats.reshape(-1, d),
+                rgb_pts.to(torch.float32).reshape(-1, 3), alpha.reshape(-1),
+                valid.reshape(-1), gs=gs, vh=vh, dedup_scatter=dedup_scatter)
 
     return step
 

@@ -6,6 +6,14 @@ Runs NCHW internally; the reference's inference BatchNorms are folded into
 the preceding convs, so every conv is conv + bias.  Convolutions,
 including the transposed ones, are plain ``torch.nn.functional`` calls in
 the model dtype, as the JAX package leaves them to XLA.
+
+The fourth reassemble stage's 3x3 stride-2 conv runs one image at a time
+(:func:`conv_per_image`): on a card, cuDNN's result for an image there
+depends in the last bits on how many images share the launch and on the
+image's place among them, which made a crop's features depend on the
+forward's batch (a sharded build against a single-device one).  With
+that one call per image, the decoder's output for a crop is the same in
+any batch.
 """
 
 from __future__ import annotations
@@ -24,6 +32,14 @@ def conv(x: torch.Tensor, m: nn.Conv2d, dt: torch.dtype) -> torch.Tensor:
     bias = m.bias.to(dt) if m.bias is not None else None
     return F.conv2d(x.to(dt), m.weight.to(dt), bias, stride=m.stride,
                     padding=m.padding)
+
+
+def conv_per_image(x: torch.Tensor, m: nn.Conv2d,
+                   dt: torch.dtype) -> torch.Tensor:
+    """:func:`conv` on each image of ``x`` alone."""
+    if x.shape[0] == 1:
+        return conv(x, m, dt)
+    return torch.cat([conv(c, m, dt) for c in x.split(1)])
 
 
 class ProjectReadout(nn.Module):
@@ -78,7 +94,7 @@ class Reassemble(nn.Module):
             x = F.conv_transpose2d(x, m.weight.to(dt), m.bias.to(dt),
                                    stride=m.stride)
         elif self.level == 3:
-            x = conv(x, self.resample, dt)
+            x = conv_per_image(x, self.resample, dt)
         return x
 
 

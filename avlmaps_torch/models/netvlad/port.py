@@ -42,6 +42,13 @@ def _as_list(layers):
     return layers if isinstance(layers, (list, tuple)) else [layers]
 
 
+def weighted_layers(net) -> list:
+    """The matconvnet ``net``'s layers that carry weights, in order
+    (relu and pool layers carry none)."""
+    return [layer for layer in _as_list(net["layers"])
+            if isinstance(layer, dict) and layer.get("weights") is not None]
+
+
 def load_netvlad_mat(path: str) -> Tuple[Dict[str, torch.Tensor],
                                          np.ndarray, NetVLADConfig]:
     """Read the matconvnet file -> (state_dict, average_image, config)."""
@@ -50,9 +57,7 @@ def load_netvlad_mat(path: str) -> Tuple[Dict[str, torch.Tensor],
     net = loadmat(str(path), simplify_cells=True)["net"]
     convs = []
     assign = centers = whiten = None
-    for layer in _as_list(net["layers"]):
-        if not isinstance(layer, dict) or layer.get("weights") is None:
-            continue
+    for layer in weighted_layers(net):
         name = str(layer.get("name", ""))
         w = [np.asarray(x, np.float32) for x in _as_list(layer["weights"])]
         bias = w[1].reshape(-1) if len(w) > 1 else None

@@ -219,10 +219,13 @@ def port_build_map(net, scene: Path, cfg, base2cam, base_tf, out_dim: int,
 
 
 def landmark_text_features(landmarks: Sequence[str], out_dim: int,
-                           clip_ckpt=None, device="cpu") -> np.ndarray:
+                           clip_ckpt=None, device="cuda") -> np.ndarray:
     """Text features for scoring.  With a CLIP checkpoint: the real
-    prompt-ensembled embeddings (both maps see the same matrix either way,
-    so parity is measured identically); else seeded unit vectors."""
+    prompt-ensembled embeddings from the text tower on ``device``
+    (default ``"cuda"``; raises without a card); both maps see the same
+    matrix either way, so parity is measured identically.  Else seeded
+    unit vectors."""
+    device = resolve_device(device)
     if clip_ckpt:
         from avlmaps_torch.models.clip import ClipEncoder
 

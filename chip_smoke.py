@@ -158,11 +158,14 @@
    over 4 shards, each equal to one K7 launch on every row, and the
    sharded K7's ms against one launch.  K1-K5 and K7 get
    ``slice10_launches``; the numbers print as one JSON line.  In the
-   same phase, the LSeg forward of 16 crops against that of their first
-   4 as shipped (``dpt_batch_check``): the outputs' max |d| and the
-   first call to differ printed, every crop's output independent of the
-   others' at a fixed batch held (``probes/dpt_batch.py`` times the
-   candidates that would remove the batch dependence).
+   same phase, part A: the LSeg forward of 16 crops equal to that of
+   their first 4, to 4 forwards of 4 and to the forward of the 16 in
+   reverse order, bit for bit (the DPT's strided conv runs one image at
+   a time; ``dpt_batch_check`` prints the probe's row with
+   ``lseg.dpt``'s device ms at the batch-8 and the throughput shapes),
+   every crop's output independent of the others' at a fixed batch, and
+   the 4-shard builds held to the batch-8 build too (bf16 wire 2e-2, f32
+   wire 1e-5).
 10. Slice 11, recall parity at full width (``avlmaps_torch.tools.
    recall_parity``), last: the reference's LSeg network at ViT-L/16
    width (seeded) in f32 with the host-loop fusion against the port's
@@ -180,7 +183,19 @@
    ``index_add_`` and bound in the ``more_shapes`` line;
    K1-K4 and K7 get ``slice11_launches``; then ``loc_eval`` on the card
    and the CPU (medians within 1e-3 m).
-11. Prints the kernel table as one JSON line, then the card line, and last
+11. Slice 12, the port's tools, last: ``trace_step`` on the batch-8
+   sliding step (2 warm, 3 traced; its categories sum to the total,
+   K1-K3 24 launches a forward and K4 one a step, the category and
+   range table printed); ``profile_step step step_dedup fusion lseg
+   vit:fused``; ``ab_fusion_prep`` (each route held to ``index_add_``'s
+   accumulator and K4 bitwise K5 before its time); ``port_checkpoints``
+   with ``--strict-manifest`` on manifest-shaped files of the 8 release
+   artifacts written here, each ``.pt`` loaded onto the card into its
+   module, and the bf16 LSeg forward of a 480^2 crop from ``lseg.pt``
+   bit for bit the forward from ``load_lseg_checkpoint``; part A's row
+   from slice 10 repeated.  Every kernel row gets ``slice12_launches``
+   and K1-K5 must each launch.
+12. Prints the kernel table as one JSON line, then the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no result line.
@@ -698,14 +713,6 @@ def write_scene(root: Path, n: int, seed: int, h: int = 720,
     return root
 
 
-PORT_KERNELS = ("wgmma_gemm_kernel", "ln_rows_kernel", "gelu_rows_kernel",
-                "attn_wgmma_kernel", "segment_scatter_kernel")
-# the port's record_function ranges on the build path; the profiler also
-# lists each range among the device events (an annotation spanning its
-# kernels), so device totals leave them out
-BUILD_RANGES = ("build.", "lseg.")
-
-
 class PositionGate:
     """After every build, every exported slot position lies inside the
     grid (0 <= row, col < gs, 0 <= h < vh) and is whole.  A slot whose
@@ -806,21 +813,20 @@ def path_ms(kernel: str) -> float:
 def profile_build(b, steps: int, attribute: bool = False) -> float:
     """Device time by kernel over a short build (torch.profiler).  Returns
     the device ms per step: every kernel and copy of the build except the
-    export's device->host copies, over the steps.  With ``attribute``,
-    also prints the torch ops by the device time of the kernels they
-    launch."""
+    export's device->host copies, over the steps (the rule of
+    ``avlmaps_torch.tools.trace_step``).  With ``attribute``, also prints
+    the torch ops by the device time of the kernels they launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from avlmaps_torch.tools import trace_step as tsp
 
     with GATE.paused(), profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         b.create_mobile_base_map(save_every=0, progress=False)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith(BUILD_RANGES)]
-    step_ms = sum(e.self_device_time_total for e in kernels
-                  if "DtoH" not in e.key) / 1e3 / steps
+    kernels = tsp.device_averages(prof)
+    step_ms = tsp.build_device_ms(prof, steps)
     print(f"  profiled {steps}-step build: device busy {step_ms:.3f} ms per "
           f"step (export copies excluded), {len(kernels)} kernel names; "
           "top by device time:")
@@ -829,52 +835,15 @@ def profile_build(b, steps: int, attribute: bool = False) -> float:
               f"{e.count:6d}x  {e.key[:90]}")
     PATH_MS.clear()
     for e in kernels:
-        name = next((k for k in PORT_KERNELS if k in e.key), None)
+        name = next((k for k in tsp.PORT_KERNELS if k in e.key), None)
         if name is not None:
             print(f"    port kernel {name}: {e.count}x, "
                   f"{e.self_device_time_total / 1e3 / e.count:.4f} ms each "
                   f"({e.key[:60]})")
             PATH_MS[e.key] = e.self_device_time_total / 1e3 / e.count
     if attribute:
-        attribute_ops(prof, steps)
+        tsp.attribute_ops(prof, steps)
     return step_ms
-
-
-def attribute_ops(prof, steps: int, top: int = 16) -> None:
-    """The torch ops that launch the build's kernels, by the device time
-    of those kernels (device->host copies excluded), each with the port's
-    ``build.*`` / ``lseg.*`` ranges around it, innermost first.  The port's
-    own kernels go through ctypes and belong to no torch op."""
-    import torch
-
-    cpu = torch.autograd.DeviceType.CPU
-    sites = {}
-    for e in prof.events():
-        if e.device_type != cpu:
-            continue
-        t = sum(k.duration for k in e.kernels if "DtoH" not in k.name)
-        if t <= 0:
-            continue
-        ranges, p = [], e.cpu_parent
-        while p is not None:
-            if p.name.startswith(BUILD_RANGES):
-                ranges.append(p.name)
-            p = p.cpu_parent
-        key = (e.name, " < ".join(ranges) or "-")
-        tt, n = sites.get(key, (0.0, 0))
-        sites[key] = (tt + t, n + 1)
-    by_range = {}
-    for (_, rng), (t, _) in sites.items():
-        by_range[rng] = by_range.get(rng, 0.0) + t
-    total = sum(by_range.values()) / 1e3 / steps
-    print(f"  torch ops' kernels: {total:.3f} ms per step; by range: "
-          + ", ".join(f"{r} {t / 1e3 / steps:.3f}" for r, t in
-                      sorted(by_range.items(), key=lambda kv: -kv[1])))
-    print(f"  top {top} torch ops by their kernels' device time:")
-    for (name, rng), (t, n) in sorted(sites.items(),
-                                      key=lambda kv: -kv[1][0])[:top]:
-        print(f"    {t / 1e3 / steps:8.3f} ms/step {n / steps:7.1f}x/step  "
-              f"{name[:30]}  in {rng}")
 
 
 def time_producer(scene: Path, mc, n_frames: int) -> float:
@@ -2022,14 +1991,14 @@ def profile_call(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from avlmaps_torch.tools import trace_step
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    gpu = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.key.startswith(BUILD_RANGES)]
+    gpu = trace_step.device_averages(prof)
     copies = [e for e in gpu if e.key.startswith(("Memcpy", "Memset"))]
     ms = sum(e.self_device_time_total for e in gpu) / 1e3
     return (ms, sum(e.count for e in gpu) - sum(e.count for e in copies),
@@ -2794,6 +2763,7 @@ def multi_floor_run(net, tmp: Path, rows, k5_row, vit_rows):
     from avlmaps_torch.config import load_config
     from avlmaps_torch.map.vlmap_builder_multi_floor import (
         HABITAT2CAM_ROT, VLMapBuilderMultiFloor, VLMapMultiFloor)
+    from avlmaps_torch.tools import trace_step
 
     t_phase = time.perf_counter()
     checks = {}
@@ -2888,10 +2858,7 @@ def multi_floor_run(net, tmp: Path, rows, k5_row, vit_rows):
         builder(net, "cuda", out="mf_profiled").create_global_map(
             progress=False)
         torch.cuda.synchronize()
-    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not e.key.startswith(BUILD_RANGES)
-                 and "DtoH" not in e.key) / 1e3 / steps
+    dev_ms = trace_step.build_device_ms(prof, steps)
     host_ms = 1e3 * (wall - save_s) / steps
     print(f"  per step: host {host_ms:.1f} ms (the measured build's fusion "
           f"loop, up to the end of its last step's device work), of which "
@@ -3346,13 +3313,14 @@ def forward_batch_probe(net, crops, per: int) -> dict:
         net(crops, upsample=False)
     part, out_p = run(crops[:per])
     whole, out_w = run(crops, part.calls)
-    # the first call whose output differs, or whose name does (a decoder
-    # run in micro-batches makes more calls on more crops: the sequences
-    # part after the first micro-batch, and no call is named then)
+    # the first call whose output differs, or whose name or number of
+    # outputs does (a call in micro-batches makes more calls on more
+    # crops: the sequences part at its split, and no call is named then)
     first = next((i for i, (a, b) in enumerate(zip(whole.calls, part.calls))
                   if a[0] != b[0] or a[2] != b[2]), None)
-    diverged = first is not None and \
+    diverged = first is not None and (
         whole.calls[first][0] != part.calls[first][0]
+        or len(whole.calls[first][2]) != len(part.calls[first][2]))
     res = dict(calls=len(part.calls),
                same_calls=[c[0] for c in whole.calls]
                == [c[0] for c in part.calls],
@@ -3379,23 +3347,53 @@ def forward_batch_probe(net, crops, per: int) -> dict:
 
 
 def dpt_batch_check(net, crops, per: int, checks: dict) -> dict:
-    """The LSeg forward of all ``crops`` against that of their first
-    ``per`` alone, as shipped (:func:`forward_batch_probe`): its final max
-    |d| and first differing call printed (the dependence is a deviation
-    kept on purpose; ``probes/dpt_batch.py`` times the candidates that
-    would remove it), and a failure if a crop's output depends on
-    another's at a fixed batch."""
+    """Part A as shipped (the fourth reassemble stage's strided conv one
+    image at a time, ``models.lseg.dpt.conv_per_image``): the LSeg
+    forward of all ``crops`` against that of their first ``per`` alone
+    (:func:`forward_batch_probe`) and against the forward of ``crops`` in
+    reverse order (every crop in another place) must be equal bit for
+    bit, and no crop's output may depend on another's at a fixed batch;
+    prints the probe's row with the decoder's device ms (the ``lseg.dpt``
+    range) on the taps of all ``crops`` (a batch-8 sliding step) and of
+    the throughput build's 16 whole canvases (``probes/dpt_batch.py``
+    times the other candidates)."""
     import torch
 
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    canvases = torch.randn(THR_BATCH, 352, 544, 3, generator=g,
+                           device="cuda")
     with torch.no_grad():
         probe = forward_batch_probe(net, crops, per)
-    print(f"  the DPT as shipped: {len(crops)} crops against their first "
-          f"{per}: output max |d| {probe['output_d']:.3e}; first call to "
-          f"differ {probe['first_call']} {probe.get('first_call_name')} "
-          f"(inputs equal {probe.get('first_call_inputs_equal')}, shapes "
-          f"{probe.get('first_call_input_shapes')}, max |d| "
-          f"{probe.get('first_call_d')}); crops independent "
-          f"{probe['crops_independent']}")
+        probe["reversed_d"] = float((net(crops, upsample=False).float()
+                                     - net(crops.flip(0), upsample=False)
+                                     .flip(0).float()).abs().max())
+        taps = net.backbone(crops)
+        thr_taps = net.backbone(canvases)
+        gh = crops.shape[1] // 16
+        tg = (canvases.shape[1] // 16, canvases.shape[2] // 16)
+        probe["dpt_ms"] = device_ms(lambda: net.decoder(taps, gh, gh),
+                                    iters=10)
+        probe["dpt_ms_throughput"] = device_ms(
+            lambda: net.decoder(thr_taps, *tg), iters=10)
+    del taps, thr_taps, canvases
+    print(f"  part A, the DPT as shipped ((c): the strided conv one "
+          f"image at a time): {len(crops)} crops against their "
+          f"first {per}: output max |d| {probe['output_d']:.3e}; against "
+          f"the {len(crops)} in reverse order {probe['reversed_d']:.3e}; "
+          f"first "
+          f"call to differ {probe['first_call']} "
+          f"{probe.get('first_call_name')}; call sequences part at "
+          f"{probe['sequences_part_at']}; lseg.dpt device "
+          f"{probe['dpt_ms']:.4f} ms on ({len(crops)}, {T}, {WIDTH}) taps, "
+          f"{probe['dpt_ms_throughput']:.4f} ms at the throughput shape "
+          f"({THR_BATCH} canvases of 352x544); crops independent "
+          f"{probe['crops_independent']}; {card_line()}")
+    checks[f"part A: the LSeg forward of {len(crops)} crops equals that of "
+           f"their first {per}, bit for bit"] = probe["output_d"] == 0
+    checks[f"part A: the LSeg forward of {len(crops)} crops equals that of "
+           "the same crops in reverse order, bit for bit"] = \
+        probe["reversed_d"] == 0
     checks["no crop's LSeg output depends on another crop's at a fixed "
            "batch"] = probe["crops_independent"]
     return probe
@@ -3407,10 +3405,9 @@ def sharded_build_run(net, scene: Path, mf_scene: Path, tmp: Path, rows,
     on the slice-1 scene over the real card and over 4 virtual shards,
     each held against the single-device build whose forward has the
     shard's shapes (bf16 and f32 wires): batch 8 for one shard, batch 2
-    for four, since the card's LSeg forward is not batch-invariant (the
-    4-shard build is also held to the batch-8 build on voxels and
-    weights, its feature difference printed beside the forward's own,
-    which :func:`forward_batch_probe` traces to its first call); K4 on
+    for four, and the 4-shard builds to the batch-8 build as well, since
+    the forward no longer depends on the batch (:func:`dpt_batch_check`
+    holds it bit for bit); K4 on
     the 4-shard step's inputs against its plain version; the all-to-all
     routing, lossless at slack 4 and at slacks 2 and 1 a subset whose
     drops each sender counts exactly; ``VLMapBuilderMultiFloor(mesh=)``
@@ -3472,6 +3469,9 @@ def sharded_build_run(net, scene: Path, mf_scene: Path, tmp: Path, rows,
           f"{S10_SHARDS} forwards of {per_shard * CROPS}: ViT taps max |d| "
           f"{d_vit:.3e}, output max |d| "
           f"{numbers['forward_batch_dependence']['output']:.3e}")
+    checks[f"the LSeg forward of {S10_BATCH * CROPS} crops equals "
+           f"{S10_SHARDS} forwards of {per_shard * CROPS}, bit for bit"] = \
+        numbers["forward_batch_dependence"]["output"] == 0
     del whole, parts, vit, vit_parts
     numbers["forward_batch_probe"] = dpt_batch_check(
         net, crops, per_shard * CROPS, checks)
@@ -3533,13 +3533,18 @@ def sharded_build_run(net, scene: Path, mf_scene: Path, tmp: Path, rows,
         maps[label] = _arrays(m)
         _s10_held(f"(a) {label} bf16 wire", maps[label], refs[label],
                   S10_BF16_TOL, checks)
+    # the forward no longer depends on the batch (part A), so the 4-shard
+    # build is also held to the batch-8 build: the bf16 wire at its
+    # rounding, the f32 wire at the single-device build's own sums
     _s10_held("(a) mesh4 against the batch-8 build", maps["mesh4"], ref,
-              None, checks)
+              S10_BF16_TOL, checks)
     for label, mesh in (("mesh1", make_mesh(1)), ("mesh4", virtual)):
         with _FuseInputs(mesh.size, sharded) as step1:
             m, _, _ = build(label + "_f32", mesh, payload_dtype=torch.float32)
         _s10_held(f"(a) {label} f32 wire", _arrays(m), refs[label],
                   S10_F32_TOL, checks)
+    _s10_held("(a) mesh4 f32 wire against the batch-8 build", _arrays(m),
+              ref, S10_F32_TOL, checks)
     # K4 at a shard's shape: the 4-shard build's first step (the f32
     # wire's: the bf16 wire's rows, slots and trash run, the features
     # unrounded), 3/4 of each shard's rows in its trash run
@@ -4194,7 +4199,8 @@ def recall_parity_run(tmp: Path, rows, checks: dict,
                                       spec.out_dim, S11_BATCH, 0)
     oracle_s = time.perf_counter() - t0
     del oracle
-    text = rp.landmark_text_features(landmarks, spec.out_dim)
+    text = rp.landmark_text_features(landmarks, spec.out_dim,
+                                     device="cuda")
     print(f"  set-up (ViT-L/16 oracle on the CPU, two port nets on the "
           f"card) {setup_s:.1f} s; the oracle's map: {len(opos)} voxels "
           f"in {oracle_s:.1f} s")
@@ -4304,6 +4310,234 @@ def recall_parity_run(tmp: Path, rows, checks: dict,
     print(f"  slice 11 phase {numbers['phase_s']:.1f} s (loc_eval on the "
           f"card {loc_s:.1f} s); {numbers['card']}")
     return numbers
+
+
+S12_MANIFESTS = {  # manifest -> (file name, port_checkpoints flag)
+    "lseg_demo_e200": ("demo_e200.ckpt", "lseg"),
+    "clip_vitb32": ("ViT-B-32.pt", "clip"),
+    "audioclip_partial": ("AudioCLIP-Partial-Training.pt", "audioclip"),
+    "superpoint_v1": ("superpoint_v1.pth", "superpoint"),
+    "superglue_indoor": ("superglue_indoor.pth", "superglue"),
+    "superglue_outdoor": ("superglue_outdoor.pth", "superglue"),
+    "netvlad_pitts30k": ("Pitts30K_struct.mat", "netvlad"),
+    "wav2clip_resnet18": ("wav2clip.pt", "wav2clip"),
+}
+
+
+def manifest_state_dict(manifest: dict, seed: int) -> dict:
+    """A state dict shaped exactly as ``manifest`` says (dtypes too),
+    drawn on the card (seconds for LSeg's 2 GB, where the numpy draw of
+    ``ckpt_manifest.synthesize_state_dict`` takes tens): N(0, 0.05^2)
+    floats, variances |.| + 0.5, integers 0."""
+    import torch
+
+    from avlmaps_torch.tools.ckpt_manifest import parse_spec
+
+    dtypes = {np.float32: torch.float32, np.float16: torch.float16,
+              np.int64: torch.int64, np.int32: torch.int32,
+              np.uint8: torch.uint8, np.bool_: torch.bool}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    sd = {}
+    for k, spec in manifest["keys"].items():
+        shape, dtype, _ = parse_spec(spec)
+        if np.issubdtype(dtype, np.floating):
+            t = torch.randn(shape, generator=g, device="cuda") * 0.05
+            if k.endswith("running_var") or ".bn" in k and k.endswith("var"):
+                t = t.abs() + 0.5
+            sd[k] = t.to(dtypes[dtype]).cpu()
+        else:
+            sd[k] = torch.zeros(shape, dtype=dtypes[dtype])
+    return sd
+
+
+def write_manifest_files(root: Path) -> dict:
+    """Every release artifact as a manifest-shaped file under ``root``:
+    ``torch.save`` for ``.ckpt`` / ``.pt`` / ``.pth`` (LSeg's under
+    ``state_dict``, as Lightning writes it), ``scipy.io.savemat`` of
+    ``assemble_netvlad_mat`` for NetVLAD.  Returns manifest -> path."""
+    import torch
+    from scipy.io import savemat
+
+    from avlmaps_torch.tools.ckpt_manifest import (assemble_netvlad_mat,
+                                                   load_manifest)
+
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for i, (name, (fname, _)) in enumerate(S12_MANIFESTS.items()):
+        sd = manifest_state_dict(load_manifest(name), seed=20 + i)
+        path = root / fname
+        if name == "netvlad_pitts30k":
+            savemat(str(path), assemble_netvlad_mat(
+                {k: v.numpy() for k, v in sd.items()}))
+        else:
+            torch.save({"state_dict": sd} if name == "lseg_demo_e200"
+                       else sd, path)
+        paths[name] = path
+        del sd
+    return paths
+
+
+def checkpoints_run(tmp: Path, checks: dict) -> dict:
+    """Slice 12's checkpoints: the 8 manifest-shaped artifacts through
+    ``port_checkpoints.main(... --strict-manifest --device cuda)``, each
+    ``.pt`` (with its config) loaded onto the card into a module rebuilt
+    from the files alone, and one bf16 LSeg forward of a 480^2 crop from
+    the ported ``.pt`` bit for bit the forward from
+    ``load_lseg_checkpoint`` of the same file.  Returns each artifact's
+    port seconds."""
+    import torch
+
+    from avlmaps_torch.models.audioclip.audioclip import AudioClip
+    from avlmaps_torch.models.audioclip import port as audioclip_port
+    from avlmaps_torch.models.clip import port as clip_port
+    from avlmaps_torch.models.clip.model import Clip
+    from avlmaps_torch.models.lseg import (LSegConfig, LSegNet,
+                                           cast_params_for_inference)
+    from avlmaps_torch.models.lseg.port import load_lseg_checkpoint
+    from avlmaps_torch.models.netvlad.model import NetVLAD, NetVLADConfig
+    from avlmaps_torch.models.superglue.model import (SuperGlueConfig,
+                                                      SuperGlueNet)
+    from avlmaps_torch.models.superpoint.model import (SuperPointConfig,
+                                                       SuperPointNet)
+    from avlmaps_torch.models.wav2clip import Wav2Clip, Wav2ClipConfig
+    from avlmaps_torch.tools import port_checkpoints
+
+    t0 = time.perf_counter()
+    paths = write_manifest_files(tmp / "release")
+    write_s = time.perf_counter() - t0
+    out = tmp / "ported"
+    seconds = {}
+    # one call with every flag (the indoor superglue), one for the outdoor
+    for names in ([n for n in S12_MANIFESTS if n != "superglue_outdoor"],
+                  ["superglue_outdoor"]):
+        argv = ["--out", str(out), "--strict-manifest", "--device", "cuda"]
+        for name in names:
+            argv += [f"--{S12_MANIFESTS[name][1]}", str(paths[name])]
+        for flag, r in port_checkpoints.main(argv).items():
+            outdoor = names == ["superglue_outdoor"]
+            seconds["superglue_outdoor" if outdoor else flag] = r["seconds"]
+
+    def cfg_json(name):
+        return json.loads((out / f"{name}.config.json").read_text())
+
+    nv = cfg_json("netvlad")
+    modules = {
+        "lseg": lambda: LSegNet(LSegConfig.vitl16(), device="cuda"),
+        "clip": lambda: Clip(clip_port.config_from_jsonable(
+            cfg_json("clip")), device="cuda"),
+        "audioclip": lambda: AudioClip(audioclip_port.config_from_jsonable(
+            cfg_json("audioclip")), device="cuda"),
+        "superpoint": lambda: SuperPointNet(SuperPointConfig(),
+                                            device="cuda"),
+        "superglue": lambda: SuperGlueNet(SuperGlueConfig(), device="cuda"),
+        "superglue_outdoor": lambda: SuperGlueNet(SuperGlueConfig(),
+                                                  device="cuda"),
+        "wav2clip": lambda: Wav2Clip(Wav2ClipConfig(), device="cuda"),
+        "netvlad": lambda: NetVLAD(NetVLADConfig(
+            nv["clusters"], nv["dim"], nv["whiten_dim"]), device="cuda"),
+    }
+    loaded = {}
+    for name, make in modules.items():
+        m = make()
+        m.load_state_dict(torch.load(out / f"{name}.pt"), strict=True)
+        loaded[name] = sum(t.numel() for t in m.state_dict().values())
+        del m
+    checks["checkpoints: all 8 manifest-shaped artifacts ported with "
+           "--strict-manifest and loaded on the card from their .pt"] = \
+        len(seconds) == 8 and len(loaded) == 8
+
+    cfg = LSegConfig.vitl16(torch.bfloat16)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    crop = torch.randn(1, 480, 480, 3, generator=g, device="cuda")
+    feats = []
+    for params in (torch.load(out / "lseg.pt"),
+                   load_lseg_checkpoint(str(paths["lseg_demo_e200"]))):
+        net = LSegNet(cfg, device="cuda")
+        net.load_state_dict(params, strict=True)
+        cast_params_for_inference(net)
+        with torch.no_grad():
+            feats.append(net.eval()(crop, upsample=False))
+        del net, params
+    same = torch.equal(*feats) and bool(torch.isfinite(
+        feats[0].float()).all())
+    checks["checkpoints: the bf16 LSeg forward from the ported lseg.pt "
+           "equals load_lseg_checkpoint's, bit for bit"] = same
+    print(f"  checkpoints: 8 manifest-shaped files written in {write_s:.1f} "
+          f"s; port seconds (loader + strict load on the card): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; parameters loaded from each .pt: {loaded}; the LSeg "
+          f"forward from lseg.pt == load_lseg_checkpoint's: {same} "
+          f"({tuple(feats[0].shape)})")
+    del feats
+    torch.cuda.empty_cache()
+    return dict(write_s=write_s, port_s=seconds, loaded=loaded)
+
+
+def slice12_run(tmp: Path, kernels, part_a: dict, checks: dict) -> dict:
+    """Slice 12: the port's tools on the card.  Part A's row (the slice-10
+    probe, held there); ``trace_step`` on the batch-8 sliding step (2
+    warm, 3 traced: the categories sum to the total, K1-K3 24 launches a
+    forward and K4 one a step); ``profile_step step step_dedup fusion
+    lseg vit:fused``; ``ab_fusion_prep`` (every route held to
+    ``index_add_``'s accumulator, K4 bitwise K5, inside the tool); the
+    checkpoints (:func:`checkpoints_run`).  ``kernels`` (every kernel
+    row) are zeroed first and get ``slice12_launches``."""
+    import torch
+
+    from avlmaps_torch.tools import ab_fusion_prep, profile_step, trace_step
+
+    t_phase = time.perf_counter()
+    out = {"card": card_line(), "part_a": {
+        k: part_a.get(k) for k in ("output_d", "reversed_d", "first_call",
+                                   "sequences_part_at", "dpt_ms",
+                                   "dpt_ms_throughput",
+                                   "crops_independent")}}
+    print(f"  part A (slice 10's probe): output max |d| "
+          f"{part_a['output_d']:.3e}, lseg.dpt {part_a['dpt_ms']:.4f} ms "
+          f"(batch-8 taps), {part_a['dpt_ms_throughput']:.4f} ms "
+          "(throughput shape)")
+    _zero(kernels)
+    k1k4 = kernels[:4]
+    warm, reps = 2, 3
+    path = trace_step.capture(tmp / "trace", reps, warm=warm)
+    counts = _counts(k1k4)
+    steps = warm + reps
+    want = {"ln_matmul": LAYERS * steps, "mha_oneshot_2d": LAYERS * steps,
+            "ln_mlp_residual": LAYERS * steps,
+            "sorted_segment_scatter_add_split": steps}
+    checks["trace: K1-K3 24 launches a forward, K4 one a step"] = \
+        counts == want
+    summ = trace_step.summarise(path, reps, per_op=True)
+    checks["trace: the categories sum to the total"] = \
+        sum(summ["category_ns"].values()) == summ["total_ns"] > 0
+    checks["trace: 24 attn_wgmma_kernel and 1 segment_scatter_kernel "
+           "launches a step in the trace"] = (
+        summ["launches"]["port attn_wgmma_kernel"] == LAYERS
+        and summ["launches"]["port segment_scatter_kernel"] == 1)
+    out["trace"] = {k: summ[k] for k in ("total_ms", "categories",
+                                         "launches", "ranges")}
+    out["trace"]["wrapper_launches"] = counts
+    print(f"  trace: {counts} over {steps} steps; {summ['total_ms']:.4f} "
+          f"device ms a step; {out['card']}")
+    print("  profile_step step step_dedup fusion lseg vit:fused:")
+    out["profile"] = profile_step.main(["step", "step_dedup", "fusion",
+                                        "lseg", "vit:fused"])
+    print("  ab_fusion_prep:")
+    out["ab_fusion_prep"] = ab_fusion_prep.run("cuda")
+    torch.cuda.empty_cache()
+    out["checkpoints"] = checkpoints_run(tmp / "ckpt", checks)
+    for r in kernels:
+        r["slice12_launches"] = r["fn"].launches
+    out["launches"] = {r["name"]: r["slice12_launches"] for r in kernels}
+    checks["slice 12: K1-K5 each launched on the phase's path"] = all(
+        r["slice12_launches"] >= 1 for r in kernels[:4]
+        + [r for r in kernels if r["name"] == "sorted_segment_scatter_add"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  slice 12 phase: {out['wall_s']:.1f} s wall; launches "
+          f"{out['launches']}")
+    return out
 
 
 def ptxas_gate(logs) -> None:
@@ -4469,6 +4703,19 @@ def main() -> int:
                                  "failed")
         thr_rows.append(s11.pop("scatter_row"))
         print(json.dumps({"slice11": s11}))
+        print("slice 12: the port's tools on the card: trace_step (batch-8 "
+              "sliding step), profile_step, ab_fusion_prep, port_checkpoints "
+              "on the 8 manifest-shaped release artifacts:")
+        s12_checks = {}
+        s12 = slice12_run(Path(tmp), rows + [k5_row] + vit_rows,
+                          s10["forward_batch_probe"], s12_checks)
+        for name, ok in s12_checks.items():
+            print(f"  {'pass' if ok else 'FAIL'}: {name}")
+        if not all(s12_checks.values()):
+            raise AssertionError("slice 12: the tools' phase failed")
+        print(json.dumps({"slice12": s12}))
+        for r in thr_rows:
+            r["slice12_launches"] = s12["launches"].get(r["name"], 0)
     launches = {r["name"]: r["launches"] for r in rows[4:]}
     print(f"  slice 2 launches: {launches}")
     print(f"position gate: {GATE.n_builds} builds, {GATE.n_steps} fusion "
@@ -4484,13 +4731,15 @@ def main() -> int:
              "slice9_launches": "slice9_launches",
              "slice10_launches": "slice10_launches",
              "slice11_launches": "slice11_launches",
+             "slice12_launches": "slice12_launches",
              "library_device_ms": "library_dev", "runs": "runs",
              "real_step": "real_step"}
     table = [{**{k: r[k] for k in keys},
               **{v: r[k] for k, v in extra.items() if k in r}}
              for r in rows + [k5_row] + vit_rows]
     print(json.dumps({"more_shapes": [
-        {k: r[k] for k in ("shape", "device_ms", "library_device_ms") + keys}
+        {k: r[k] for k in ("shape", "device_ms", "library_device_ms",
+                           "slice12_launches") + keys}
         for r in thr_rows]}))
     print(json.dumps({"kernels": table}))
     print(card)

@@ -90,6 +90,55 @@ def test_forward_resized_posembed_matches_flax():
     np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-3)
 
 
+def _resample_launches(monkeypatch, net):
+    """Counts the fourth reassemble stage's strided conv launches."""
+    from avlmaps_torch.models.lseg import dpt
+
+    calls, conv = [], dpt.conv
+
+    def counted(x, m, dt):
+        if m is net.decoder.reassemble[3].resample:
+            calls.append(x.shape[0])
+        return conv(x, m, dt)
+
+    monkeypatch.setattr(dpt, "conv", counted)
+    return calls
+
+
+def test_per_image_strided_conv_forward_matches_flax(monkeypatch):
+    """A batch of 6 crops takes the strided conv one image at a time and
+    still matches the JAX forward at the golden 5e-3."""
+    jnet, variables, tnet = _pair("tiny16")
+    x = np.random.default_rng(5).normal(size=(6, 64, 64, 3)).astype(
+        np.float32)
+    want = np.asarray(jnet(variables, jnp.asarray(x), upsample=False))
+    calls = _resample_launches(monkeypatch, tnet)
+    with torch.no_grad():
+        got = tnet(torch.from_numpy(x), upsample=False).numpy()
+    assert calls == [1] * 6
+    np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-3)
+
+
+# bf16: bit for bit on the CPU; f32: the ViT's CPU matmuls block by the
+# batch's rows, a few f32 ulps of the 1/0.07-scaled features (1.8e-5
+# measured, under 1e-4)
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 0.0),
+                                        (torch.float32, 1e-4)])
+def test_forward_of_a_batch_equals_each_crops_own(monkeypatch, dtype, atol):
+    net = LSegNet(LSegConfig.tiny16(dtype), device="cpu")
+    net.load_state_dict(init_params(net.cfg, torch.Generator().manual_seed(0)),
+                        strict=True)
+    cast_params_for_inference(net)
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(6, 64, 64, 3)).astype(np.float32))
+    calls = _resample_launches(monkeypatch, net)
+    with torch.no_grad():
+        whole = net(x, upsample=False).float()
+        own = torch.cat([net(c, upsample=False) for c in x.split(1)]).float()
+    assert calls == [1] * 12
+    assert float((whole - own).abs().max()) <= atol
+
+
 def test_bf16_model_emits_bf16_half_res():
     net = LSegNet(LSegConfig.tiny16(torch.bfloat16), device="cpu")
     net.load_state_dict(init_params(net.cfg, torch.Generator().manual_seed(0)),

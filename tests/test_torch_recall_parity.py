@@ -117,3 +117,17 @@ def test_near_ties_split_the_disagreements():
     assert got["max_score_d"] > 0.2
     assert (got["disagreements"], got["near_ties"],
             got["not_near_ties"]) == (2, 1, 1)
+
+
+def test_landmark_text_features_default_to_the_card(monkeypatch):
+    """The text features run on the card unless asked: without one the
+    default raises, and ``device="cpu"`` gives the JAX tool's seeded
+    unit vectors."""
+    landmarks = ["chair", "table", "sofa"]
+    got = trp.landmark_text_features(landmarks, 24, device="cpu")
+    want = jrp.landmark_text_features(landmarks, 24)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1, rtol=1e-6)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        trp.landmark_text_features(landmarks, 24)

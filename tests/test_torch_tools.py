@@ -129,7 +129,10 @@ def test_pack_scene_cli_refuses_a_mismatched_scene(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("main,argv", [
-    ("recall_parity", ["--tiny"]), ("loc_eval", [])])
+    ("recall_parity", ["--tiny"]), ("loc_eval", []),
+    ("port_checkpoints", ["--superpoint", "superpoint_v1.pth"]),
+    ("trace_step", []), ("profile_step", ["fusion"]),
+    ("ab_fusion_prep", [])])
 def test_device_tools_default_to_the_card_and_raise_without_one(
         monkeypatch, main, argv):
     import importlib
@@ -146,9 +149,13 @@ def test_device_tools_default_to_the_card_and_raise_without_one(
 
 CLIS = ["avlmaps_torch.tools.recall_parity", "avlmaps_torch.tools.loc_eval",
         "avlmaps_torch.tools.planner_eval", "avlmaps_torch.tools.pack_scene",
-        "avlmaps_torch.dataset.generate_dataset"]
+        "avlmaps_torch.dataset.generate_dataset",
+        "avlmaps_torch.tools.port_checkpoints",
+        "avlmaps_torch.tools.trace_step", "avlmaps_torch.tools.profile_step",
+        "avlmaps_torch.tools.ab_fusion_prep"]
 MODULES = CLIS + ["avlmaps_torch.tools.reference_lseg",
-                  "avlmaps_torch.dataset.sound_nav_tasks"]
+                  "avlmaps_torch.dataset.sound_nav_tasks",
+                  "avlmaps_torch.tools.ckpt_manifest"]
 BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "avlmaps_tpu", "tools",
            "dataset")
 
