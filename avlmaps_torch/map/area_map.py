@@ -15,6 +15,7 @@ from typing import List, Optional, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from avlmaps_torch.geometry.transforms import pose_vec_to_tf
 from avlmaps_torch.map.voxel_map import (load_clip_sparse_map,
@@ -68,22 +69,25 @@ class AreaMap:
         decoded at once is gigabytes of host memory."""
         from avlmaps_torch.pipeline.packed import rgb_reader
 
-        self._setup_paths(data_dir)
-        enc = self._init_clip()
-        base_poses = np.loadtxt(self.pose_path)
-        if base_poses.ndim == 1:
-            base_poses = base_poses[None]
-        read = rgb_reader(self.data_dir, self.rgb_paths)
-        n = len(self.rgb_paths)
-        feats = np.zeros((n, enc.feat_dim), np.float32)
+        with record_function("area.setup"):
+            self._setup_paths(data_dir)
+            enc = self._init_clip()
+            base_poses = np.loadtxt(self.pose_path)
+            if base_poses.ndim == 1:
+                base_poses = base_poses[None]
+            read = rgb_reader(self.data_dir, self.rgb_paths)
+            n = len(self.rgb_paths)
+            feats = np.zeros((n, enc.feat_dim), np.float32)
         for s0 in range(0, n, batch_size):
-            chunk = [read(i) for i in range(s0, min(s0 + batch_size, n))]
+            with record_function("area.read"):
+                chunk = [read(i) for i in range(s0, min(s0 + batch_size, n))]
             feats[s0:s0 + len(chunk)] = enc.get_imgs_feats_batch(
                 chunk, batch_size)
         self.clip_sparse_map = feats
         self.robot_pose_list = [pose_vec_to_tf(v) for v in base_poses]
-        save_clip_sparse_map(self.map_save_dir / "clip_sparse_map.h5df",
-                             self.clip_sparse_map, self.robot_pose_list)
+        with record_function("area.save"):
+            save_clip_sparse_map(self.map_save_dir / "clip_sparse_map.h5df",
+                                 self.clip_sparse_map, self.robot_pose_list)
 
     def load_map(self, data_dir: Union[Path, str]) -> None:
         self._setup_paths(data_dir)

@@ -448,74 +448,53 @@ class VLMapBuilder:
     def _build(self, pose_tfs, save_every: int,
                progress: bool) -> SparseVoxelMap:
         cfg = self.map_config
-        gs, cs, vh = cfg.gs, cfg.cs, cfg.vh
+        gs, vh = cfg.gs, cfg.vh
         dev = self.device
-        os.makedirs(self.map_save_dir, exist_ok=True)
+        # the host work before the first batch: the resume read, the
+        # pack's match, the accumulator, the step and the loader
+        with record_function("build.setup"):
+            os.makedirs(self.map_save_dir, exist_ok=True)
 
-        saved, mapped = self._load_saved()  # resume: skip mapped frames
-        scene = self._packed_scene()
-        if scene is not None:
-            h, w = scene.h, scene.w
-        else:
-            from avlmaps_torch.pipeline.loader import load_depth
+            saved, mapped = self._load_saved()  # resume: skip mapped frames
+            scene = self._packed_scene()
+            if scene is not None:
+                h, w = scene.h, scene.w
+            else:
+                from avlmaps_torch.pipeline.loader import load_depth
 
-            h, w = np.asarray(load_depth(self.depth_paths[0])).shape[:2]
-        max_pts = cfg.point_budget(h, w)
-        base_size = getattr(cfg, "lseg_base_size", 520)
-        crop_size = getattr(cfg, "lseg_crop_size", 480)
-        height, width, _, _, _ = plan_windows(h, w, base_size, crop_size)
-        use_canvas = self.transport == "canvas"
-        lseg_eval = getattr(cfg, "lseg_eval", "sliding")
+                h, w = np.asarray(load_depth(self.depth_paths[0])).shape[:2]
+            max_pts = cfg.point_budget(h, w)
+            base_size = getattr(cfg, "lseg_base_size", 520)
+            crop_size = getattr(cfg, "lseg_crop_size", 480)
+            height, width, _, _, _ = plan_windows(h, w, base_size, crop_size)
+            use_canvas = self.transport == "canvas"
+            lseg_eval = getattr(cfg, "lseg_eval", "sliding")
 
-        def sampler(b):
-            return sample_pixels(self.rng, h, w, cfg.depth_sample_rate,
-                                 max_pts, b)
+            def sampler(b):
+                return sample_pixels(self.rng, h, w, cfg.depth_sample_rate,
+                                     max_pts, b)
 
+            if self.mesh is not None:
+                if self.sampling == "device":
+                    warnings.warn(
+                        "sampling='device' is not implemented for sharded "
+                        "(mesh) builds; using the host sampler", stacklevel=3)
+                sharded = self._setup_sharded(
+                    scene, pose_tfs, saved, mapped, sampler, (h, w),
+                    (height, width), base_size, crop_size, lseg_eval)
+            else:
+                device_sampling = use_canvas and self.sampling == "device"
+                if self.sampling == "device" and not use_canvas:
+                    warnings.warn("sampling='device' needs "
+                                  "transport='canvas'; using the host "
+                                  "sampler", stacklevel=2)
+                state, step, loader = self._setup_single(
+                    scene, pose_tfs, saved, mapped, sampler, (h, w),
+                    (height, width), base_size, crop_size, lseg_eval,
+                    max_pts, device_sampling)
         if self.mesh is not None:
-            if self.sampling == "device":
-                warnings.warn(
-                    "sampling='device' is not implemented for sharded "
-                    "(mesh) builds; using the host sampler", stacklevel=3)
-            return self._create_sharded(
-                scene, pose_tfs, saved, mapped, sampler, (h, w),
-                (height, width), base_size, crop_size, lseg_eval,
-                save_every, progress)
-
-        device_sampling = use_canvas and self.sampling == "device"
-        if self.sampling == "device" and not use_canvas:
-            warnings.warn("sampling='device' needs transport='canvas'; "
-                          "using the host sampler", stacklevel=2)
-        if saved is not None:
-            grid_feat, grid_pos, weight, occupied_ids, grid_rgb = saved
-            state = restore_fusion_state(gs, vh, cfg.capacity, grid_feat,
-                                         grid_pos, weight, occupied_ids,
-                                         grid_rgb, device=dev)
-        else:
-            state = init_fusion_state(gs, vh, self.feat_dim, cfg.capacity,
-                                      device=dev)
-        common = dict(gs=gs, cs=cs, vh=vh, calib_mat=cfg.calib_matrix(),
-                      image_hw=(h, w), base_size=base_size,
-                      crop_size=crop_size, min_depth=cfg.min_depth,
-                      max_depth=cfg.max_depth,
-                      half_res_apply=self.half_res_apply, device=dev)
-
-        if device_sampling:
-            from avlmaps_torch.pipeline.transport import \
-                make_raw_canvas_transform
-
-            step = make_frame_step_device_sampled(
-                self.lseg_apply, lseg_eval=lseg_eval, max_pts=max_pts,
-                seed=self.seed, **common)
-            transform = make_raw_canvas_transform((height, width))
-        elif use_canvas:
-            from avlmaps_torch.pipeline.transport import make_canvas_transform
-
-            step = make_frame_step_canvas(self.lseg_apply,
-                                          lseg_eval=lseg_eval, **common)
-            transform = make_canvas_transform(sampler, (height, width))
-        else:
-            step = make_frame_step(self.lseg_apply, rgb_uint8=True, **common)
-            transform = None
+            return self._create_sharded(*sharded, mapped, sampler,
+                                        save_every, progress)
 
         def to_device(a: np.ndarray) -> torch.Tensor:
             t = torch.from_numpy(a)
@@ -523,30 +502,29 @@ class VLMapBuilder:
                 return t.pin_memory().to(dev, non_blocking=True)
             return t
 
-        loader = self._make_loader(scene, pose_tfs, mapped, sampler,
-                                   (height, width), transform, use_canvas,
-                                   device_sampling, self.batch_size,
-                                   self.device)
         done = 0
         meter = RateMeter()
         with torch.no_grad():
             for batch in loader:
                 fv = batch.frame_ids >= 0
-                fv_t = to_device(fv)
-                if device_sampling:
-                    state = step(state, batch.canvas, batch.depth_mm,
-                                 batch.pose_tf, to_device(batch.frame_ids),
-                                 fv_t)
-                elif use_canvas:
-                    state = step(state, batch.canvas, batch.z_mm,
-                                 batch.rgb_pts, batch.pose_tf,
-                                 batch.sample_idx, fv_t)
-                else:
-                    idx = sample_pixels(self.rng, h, w,
-                                        cfg.depth_sample_rate, max_pts,
-                                        self.batch_size)
-                    state = step(state, batch.rgb, batch.depth,
-                                 batch.pose_tf, to_device(idx), fv_t)
+                # the step's launches and the inputs this thread makes for
+                # them; the build.* and lseg.* ranges nest inside
+                with record_function("build.step"):
+                    fv_t = to_device(fv)
+                    if device_sampling:
+                        state = step(state, batch.canvas, batch.depth_mm,
+                                     batch.pose_tf,
+                                     to_device(batch.frame_ids), fv_t)
+                    elif use_canvas:
+                        state = step(state, batch.canvas, batch.z_mm,
+                                     batch.rgb_pts, batch.pose_tf,
+                                     batch.sample_idx, fv_t)
+                    else:
+                        idx = sample_pixels(self.rng, h, w,
+                                            cfg.depth_sample_rate, max_pts,
+                                            self.batch_size)
+                        state = step(state, batch.rgb, batch.depth,
+                                     batch.pose_tf, to_device(idx), fv_t)
                 n_new = int(fv.sum())
                 mapped.update(int(i) for i in batch.frame_ids if i >= 0)
                 done += n_new
@@ -566,6 +544,51 @@ class VLMapBuilder:
             "fps": meter.rate,
         }
         return self._save(state, gs, vh, mapped)
+
+    def _setup_single(self, scene, pose_tfs, saved, mapped, sampler,
+                      image_hw, canvas_hw, base_size, crop_size, lseg_eval,
+                      max_pts, device_sampling):
+        """The one-device build's fusion state (fresh or resumed), frame
+        step and loader."""
+        cfg = self.map_config
+        gs, vh = cfg.gs, cfg.vh
+        dev = self.device
+        use_canvas = self.transport == "canvas"
+        if saved is not None:
+            grid_feat, grid_pos, weight, occupied_ids, grid_rgb = saved
+            state = restore_fusion_state(gs, vh, cfg.capacity, grid_feat,
+                                         grid_pos, weight, occupied_ids,
+                                         grid_rgb, device=dev)
+        else:
+            state = init_fusion_state(gs, vh, self.feat_dim, cfg.capacity,
+                                      device=dev)
+        common = dict(gs=gs, cs=cfg.cs, vh=vh, calib_mat=cfg.calib_matrix(),
+                      image_hw=image_hw, base_size=base_size,
+                      crop_size=crop_size, min_depth=cfg.min_depth,
+                      max_depth=cfg.max_depth,
+                      half_res_apply=self.half_res_apply, device=dev)
+
+        if device_sampling:
+            from avlmaps_torch.pipeline.transport import \
+                make_raw_canvas_transform
+
+            step = make_frame_step_device_sampled(
+                self.lseg_apply, lseg_eval=lseg_eval, max_pts=max_pts,
+                seed=self.seed, **common)
+            transform = make_raw_canvas_transform(canvas_hw)
+        elif use_canvas:
+            from avlmaps_torch.pipeline.transport import make_canvas_transform
+
+            step = make_frame_step_canvas(self.lseg_apply,
+                                          lseg_eval=lseg_eval, **common)
+            transform = make_canvas_transform(sampler, canvas_hw)
+        else:
+            step = make_frame_step(self.lseg_apply, rgb_uint8=True, **common)
+            transform = None
+        loader = self._make_loader(scene, pose_tfs, mapped, sampler,
+                                   canvas_hw, transform, use_canvas,
+                                   device_sampling, self.batch_size, dev)
+        return state, step, loader
 
     def _packed_scene(self):
         """The matching, up-to-date ``.avpack`` (pipeline.packed.
@@ -601,15 +624,13 @@ class VLMapBuilder:
                               normalize=False, transform=transform,
                               device=device)
 
-    def _create_sharded(self, scene, pose_tfs, saved, mapped, sampler,
-                        image_hw, canvas_hw, base_size, crop_size, lseg_eval,
-                        save_every, progress) -> SparseVoxelMap:
-        """The multi-device build: frames data-parallel over the mesh, the
-        grid row-sharded (parallel/sharded.py).  Resumes from a saved map
-        by re-sharding its slots by row ownership and saves every
-        ``save_every`` fused frames, as the reference's periodic save
-        (avlmaps/map/vlmap_builder.py:180-183).  The loader yields host
-        arrays; each shard's block crosses to its device in the step."""
+    def _setup_sharded(self, scene, pose_tfs, saved, mapped, sampler,
+                       image_hw, canvas_hw, base_size, crop_size, lseg_eval):
+        """The multi-device build's fusion (resumed from a saved map by
+        re-sharding its slots by row ownership), its loader and its batch
+        (rounded down to a multiple of the mesh size).  The loader yields
+        host arrays; each shard's block crosses to its device in the
+        step."""
         from avlmaps_torch.parallel.sharded import ShardedFusion
 
         cfg = self.map_config
@@ -628,9 +649,6 @@ class VLMapBuilder:
         if saved is not None:
             fusion.restore(*saved)
 
-        def save() -> SparseVoxelMap:
-            return self._write(fusion.export(), gs, vh, mapped)
-
         transform = None
         if use_canvas:
             from avlmaps_torch.pipeline.transport import make_canvas_transform
@@ -639,16 +657,35 @@ class VLMapBuilder:
         loader = self._make_loader(scene, pose_tfs, mapped, sampler,
                                    canvas_hw, transform, use_canvas, False,
                                    batch, None)
+        return fusion, loader, batch
+
+    def _create_sharded(self, fusion, loader, batch, mapped, sampler,
+                        save_every, progress) -> SparseVoxelMap:
+        """The multi-device build's loop: frames data-parallel over the
+        mesh, the grid row-sharded (parallel/sharded.py); saves every
+        ``save_every`` fused frames, as the reference's periodic save
+        (avlmaps/map/vlmap_builder.py:180-183)."""
+        gs, vh = self.map_config.gs, self.map_config.vh
+        n_dev = self.mesh.size
+        use_canvas = self.transport == "canvas"
+
+        def save() -> SparseVoxelMap:
+            with record_function("build.export"):
+                exported = fusion.export()
+            return self._write(exported, gs, vh, mapped)
+
         meter = RateMeter()
         done = 0
         with torch.no_grad():
             for b in loader:
                 fv = b.frame_ids >= 0
-                if use_canvas:
-                    fusion.step(b.canvas, b.z_mm, b.rgb_pts, b.pose_tf,
-                                b.sample_idx, fv)
-                else:
-                    fusion.step(b.rgb, b.depth, b.pose_tf, sampler(batch), fv)
+                with record_function("build.step"):
+                    if use_canvas:
+                        fusion.step(b.canvas, b.z_mm, b.rgb_pts, b.pose_tf,
+                                    b.sample_idx, fv)
+                    else:
+                        fusion.step(b.rgb, b.depth, b.pose_tf,
+                                    sampler(batch), fv)
                 n_new = int(fv.sum())
                 mapped.update(int(i) for i in b.frame_ids if i >= 0)
                 done += n_new
@@ -681,8 +718,9 @@ class VLMapBuilder:
 
     def _save(self, state: VoxelFusionState, gs: int, vh: int,
               mapped) -> SparseVoxelMap:
-        return self._write(export_fusion_state(state, gs, vh), gs, vh,
-                           mapped)
+        with record_function("build.export"):
+            exported = export_fusion_state(state, gs, vh)
+        return self._write(exported, gs, vh, mapped)
 
     def _write(self, exported, gs: int, vh: int, mapped) -> SparseVoxelMap:
         grid_feat, grid_pos, weight, occupied_ids, grid_rgb = exported
@@ -690,5 +728,6 @@ class VLMapBuilder:
                            grid_feat=grid_feat, grid_pos=grid_pos,
                            weight=weight, occupied_ids=occupied_ids,
                            grid_rgb=grid_rgb, mapped_iters=set(mapped))
-        m.save(self.map_save_path)
+        with record_function("build.save"):
+            m.save(self.map_save_path)
         return m

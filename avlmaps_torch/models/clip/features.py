@@ -237,8 +237,9 @@ class ClipEncoder:
         """Batched image features (reference clip_utils.py:113-130)."""
         out = np.zeros((len(imgs), self.feat_dim), np.float32)
         for start in range(0, len(imgs), batch_size):
-            batch = preprocess_images(imgs[start:start + batch_size],
-                                      self.cfg.image_size)
+            with torch.profiler.record_function("clip.preprocess"):
+                batch = preprocess_images(imgs[start:start + batch_size],
+                                          self.cfg.image_size)
             feats = self.model.encode_image(
                 to_device(batch, self.device)).float().cpu().numpy()
             feats = feats / np.linalg.norm(feats, axis=-1, keepdims=True)

@@ -165,9 +165,10 @@ def make_text_object_query(clip_encoder, grid_shape,
 
     def query(text: str, map_feats, grid_pos, other_text_feats):
         with torch.profiler.record_function("query.text_encode"):
-            prompts = [t.format(text) for t in MULTIPLE_TEMPLATES]
-            query_feat = clip_encoder.encode_templates(
-                clip_encoder.device_tokens(prompts))
+            with torch.profiler.record_function("query.tokenize"):
+                tokens = clip_encoder.device_tokens(
+                    [t.format(text) for t in MULTIPLE_TEMPLATES])
+            query_feat = clip_encoder.encode_templates(tokens)
             feats_t = torch.cat([query_feat, to_device(
                 other_text_feats, dev, torch.float32)])
         return _object_query_program(

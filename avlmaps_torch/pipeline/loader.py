@@ -17,6 +17,7 @@ from typing import Iterator, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 try:
     import cv2
@@ -112,7 +113,10 @@ class _QueueLoader:
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
         while True:
-            batch = self._queue.get()
+            # the consumer waiting on the producer: once a batch and once
+            # for the end marker
+            with record_function("build.wait_input"):
+                batch = self._queue.get()
             if batch is None:
                 return
             if isinstance(batch, BaseException):

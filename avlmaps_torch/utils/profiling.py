@@ -1,17 +1,15 @@
 """Profiling utilities (counterpart of ``avlmaps_tpu/utils/profiling.py``).
 
 The reference's only instrumentation is a wall-clock ``Tic`` timer
-(avlmaps/utils/time_utils.py:3-14); ``Profiler`` adds named scoped timers
-with aggregate stats and ``RateMeter`` a throughput meter for the builder
-loop.  All three time on the host clock.
+(avlmaps/utils/time_utils.py:3-14); ``RateMeter`` is a throughput meter
+for the builder loop.  Both time on the host clock; the port's spans are
+``torch.profiler.record_function`` ranges, on the profiler's clock.
 """
 
 from __future__ import annotations
 
-import contextlib
 import time
-from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Optional
 
 
 class Tic:
@@ -30,35 +28,6 @@ class Tic:
 
     def print_time(self, label: str = "") -> float:
         return self.toc(label)
-
-
-class Profiler:
-    """Named scoped timers with aggregate stats."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def scope(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            t, c = self.totals[name], self.counts[name]
-            lines.append(f"{name:30s} total {t:8.3f}s  calls {c:5d}  "
-                         f"avg {t / c * 1e3:8.2f}ms")
-        return "\n".join(lines)
-
-    def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
 
 
 class RateMeter:
