@@ -19,11 +19,13 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from avlmaps_torch.models.clip.model import (CLIP_VARIANTS, Clip,
-                                             ClipConfig, preprocess_images)
+from avlmaps_torch.models.clip.model import (CLIP_VARIANTS, IMAGE_MEAN,
+                                             IMAGE_STD, Clip, ClipConfig,
+                                             preprocess_images)
 from avlmaps_torch.models.clip.port import init_params, load_clip_checkpoint
 from avlmaps_torch.models.clip.tokenizer import (ClipTokenizer,
                                                  default_tokenizer)
+from avlmaps_torch.ops.clip_resample import FramePreprocess
 from avlmaps_torch.ops.similarity import score_argmax, score_features
 from avlmaps_torch.utils.device import resolve_device, to_device
 
@@ -168,6 +170,8 @@ class ClipEncoder:
         self.model.eval().requires_grad_(False)
         self._map_dev = None
         self._map_dev_key = None
+        self._frames = FramePreprocess(cfg.image_size, IMAGE_MEAN, IMAGE_STD,
+                                       self.device)
 
     # -- text --------------------------------------------------------------
 
@@ -234,14 +238,23 @@ class ClipEncoder:
     @torch.no_grad()
     def get_imgs_feats_batch(self, imgs: Sequence[np.ndarray],
                              batch_size: int = 64) -> np.ndarray:
-        """Batched image features (reference clip_utils.py:113-130)."""
+        """Batched image features (reference clip_utils.py:113-130).
+
+        On a CUDA device the frames go to the card as uint8 and one kernel
+        a frame shape resizes, crops and normalises them there
+        (``ops/clip_resample.py``); on the CPU :func:`preprocess_images`
+        does it with PIL.  The two agree byte for byte, so the tower sees
+        the same input either way."""
         out = np.zeros((len(imgs), self.feat_dim), np.float32)
         for start in range(0, len(imgs), batch_size):
+            chunk = imgs[start:start + batch_size]
             with torch.profiler.record_function("clip.preprocess"):
-                batch = preprocess_images(imgs[start:start + batch_size],
-                                          self.cfg.image_size)
-            feats = self.model.encode_image(
-                to_device(batch, self.device)).float().cpu().numpy()
+                if self.device.type == "cuda":
+                    batch = self._frames(chunk)
+                else:
+                    batch = to_device(preprocess_images(
+                        chunk, self.cfg.image_size), self.device)
+            feats = self.model.encode_image(batch).float().cpu().numpy()
             feats = feats / np.linalg.norm(feats, axis=-1, keepdims=True)
             out[start:start + feats.shape[0]] = feats
         return out

@@ -229,7 +229,9 @@ IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 def preprocess_images(images_uint8, size: int = 224) -> np.ndarray:
     """Resize (bicubic) + centre-crop + normalise a batch of HWC uint8
     images to CLIP's input distribution.  Host-side (PIL), as in the JAX
-    package; returns (B, size, size, 3) f32."""
+    package; returns (B, size, size, 3) f32.  ``ClipEncoder`` runs this on
+    the CPU; on a CUDA device it runs ``ops/clip_resample.py``'s kernel
+    instead, which gives the same bytes."""
     from PIL import Image
 
     out = np.zeros((len(images_uint8), size, size, 3), np.float32)

@@ -21,6 +21,12 @@
    tolerance; times the kernel, the plain version and one PyTorch library
    call for the same function (a yardstick the port never calls) with
    CUDA events, and the wgmma kernels' device time with the profiler.
+   Then CLIP's preprocess kernel (``clip_resample``) at the area map's
+   batch, 64 seeded 720x1080 frames to 224: bit-equal to its plain
+   version on the card and to PIL (``preprocess_images``, its yardstick)
+   on the host; the kernel, plain and PIL times, the encoder's path from
+   host frames (copy into pinned staging, upload, kernel) and the upload
+   alone, and its bytes bound from the input span the crop's taps read.
 3. Slice 1, map construction: writes a synthetic 720x1080 RGB-D scene,
    builds it with ``VLMapBuilder`` and the ViT-L/16 LSeg in bf16 (seeded
    random weights) at gs=1000, cs=0.05, vh=30, capacity 1e6, D=512, batch
@@ -69,7 +75,8 @@
    on outside and asserted off inside the forward), and the area map's
    CLIP ViT-L/14 on two frames by the same rule; builds the area map
    (``AreaMap.create_map``) and the sound map
-   (``SoundMap.create_sound_map``, one event a tone), then
+   (``SoundMap.create_sound_map``, one event a tone; ``clip_resample``
+   zeroed before the area map and one launch a batch of 64 after), then
    ``AVLMap.load_map``; ``index_area_2d`` / ``index_sound_2d`` at gs =
    1000 on the card against the same calls on CPU tensors (atol 1e-5),
    the u8 delivery against the host quantisation, the (N,) lifts, and
@@ -683,6 +690,91 @@ def score_kernel_checks():
     del x, xz
     torch.cuda.empty_cache()
     return rows
+
+
+CLIP_BATCH = 64  # AreaMap.create_map's batch
+CLIP_HW = (720, 1080)
+CLIP_SIZE = 224  # ViT-L/14's input
+
+
+def clip_resample_check():
+    """CLIP's preprocess kernel on (64, 720, 1080, 3) seeded frames to 224:
+    raises unless it equals its plain version on the card and PIL on the
+    host bit for bit.  The row times the kernel (CUDA events; device ms
+    from the profiler), the plain version, PIL on the host (the
+    yardstick, median of 3), the encoder's path from host frames
+    (``FramePreprocess``: the copy into pinned staging, the upload, the
+    kernel; host clock to a synchronise, median of 5, ``staged_ms``) and
+    the pinned upload alone (``upload_ms``).  The bound counts the input
+    rows and columns under the crop's taps (``crop_tables``) read once and
+    the f32 batch written once, with the passes' integer multiply-adds
+    against the f32 peak outside the tensor cores."""
+    import statistics
+
+    import torch
+
+    from avlmaps_torch.models.clip.model import (IMAGE_MEAN, IMAGE_STD,
+                                                 preprocess_images)
+    from avlmaps_torch.ops import clip_resample as cr
+
+    (h, w), b, size = CLIP_HW, CLIP_BATCH, CLIP_SIZE
+    frames = np.random.default_rng(0).integers(0, 256, (b, h, w, 3),
+                                               dtype=np.uint8)
+    dev = torch.from_numpy(frames).cuda()
+    k = lambda: cr.clip_resample(dev, size, IMAGE_MEAN,  # noqa: E731
+                                 IMAGE_STD)
+    p = lambda: cr.clip_resample_ref(dev, size, IMAGE_MEAN,  # noqa: E731
+                                     IMAGE_STD)
+    got = k().cpu().numpy()
+    plain = p().cpu().numpy()
+
+    def host_ms(fn, iters):
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), fn()
+
+    pil_ms, pil = host_ms(lambda: preprocess_images(frames, size), 3)
+    same_plain, same_pil = (np.array_equal(got, plain),
+                            np.array_equal(got, pil))
+    print(f"  clip_resample {(b, h, w, 3)} -> {size}: == plain version "
+          f"{same_plain}, == PIL {same_pil}")
+    if not (same_plain and same_pil):
+        raise AssertionError("clip_resample differs from its plain version "
+                             "or from PIL")
+    pre = cr.FramePreprocess(size, IMAGE_MEAN, IMAGE_STD,
+                             torch.device("cuda"))
+    staged = list(frames)
+    staged_ms, out = host_ms(lambda: pre(staged), 5)
+    if not np.array_equal(out.cpu().numpy(), got):
+        raise AssertionError("FramePreprocess differs from the kernel")
+    pinned = torch.from_numpy(frames).pin_memory()
+    t = cr.crop_tables(h, w, size)
+    rows = int(t.vb[-1].sum() - t.vb[0, 0])
+    cols = int(t.hb[-1].sum() - t.hb[0, 0])
+    macs = b * 3 * size * (rows * t.hk.shape[1] + size * t.vk.shape[1])
+    b_ms, b_by = bound(2 * macs, b * rows * cols * 3 + b * size * size * 12,
+                       PEAK_F32)
+    print(f"  the crop reads input rows {rows} x columns {cols} of "
+          f"{h} x {w}")
+    row = dict(name="clip_resample", fn=cr.clip_resample, route="cuda",
+               source="avlmaps_torch/csrc/clip_resample.cu",
+               replaces="avlmaps_tpu/models/clip/model.py:220",
+               max_abs_err=float(np.abs(got - pil).max()), ms=time_ms(k, 20),
+               device_ms=device_ms(k, 5), plain_ms=time_ms(p, 3),
+               bound_ms=b_ms, bound_by=b_by, library_ms=pil_ms,
+               staged_ms=staged_ms,
+               upload_ms=time_ms(lambda: pinned.to("cuda",
+                                                   non_blocking=True), 5))
+    print(f"  clip_resample: {_times(row)} (library: PIL on the host); "
+          f"host frames to the card's batch {staged_ms:.4f} ms, the pinned "
+          f"upload {row['upload_ms']:.4f} ms")
+    del dev, pinned, pre
+    torch.cuda.empty_cache()
+    return row
 
 
 def write_scene(root: Path, n: int, seed: int, h: int = 720,
@@ -2005,12 +2097,13 @@ def profile_call(fn):
             sum(e.count for e in copies))
 
 
-def sound_area_run(enc, scene: Path, rows):
+def sound_area_run(enc, scene: Path, rows, clip_row):
     """Slice 7: the area and sound maps on the scene slice 1 built, loaded
     through ``AVLMap.load_map``, and the area, sound and multimodal
     queries at gs = 1000.  ``enc`` is slice 2's ViT-B/32 encoder (the
     VLMap's); ``rows`` are K7's and K8's kernel-table rows, whose counts
-    this phase reads for itself."""
+    this phase reads for itself; ``clip_row`` gets the area map's
+    ``clip_resample`` launches."""
     import torch
 
     from avlmaps_torch.config import load_config
@@ -2083,10 +2176,17 @@ def sound_area_run(enc, scene: Path, rows):
 
     # the two maps, then AVLMap.load_map on the scene
     area = AreaMap(str(scene), clip_encoder=venc, device="cuda")
+    clip_row["fn"].launches = 0
     t0 = time.perf_counter()
     area.create_map(scene)
-    n_frames = len(area.rgb_paths)
     t_area = time.perf_counter() - t0
+    clip_row["launches"] = clip_row["fn"].launches
+    n_frames = len(area.rgb_paths)
+    want = -(-n_frames // CLIP_BATCH)
+    print(f"  area map: clip_resample {clip_row['launches']} launches for "
+          f"{n_frames} frames")
+    checks[f"area map: clip_resample once a batch of {CLIP_BATCH}"] = \
+        clip_row["launches"] == want
     sound = SoundMap(str(scene), cfg.sound_config, cc,
                      audioclip_encoder=aenc, device="cuda")
     t0 = time.perf_counter()
@@ -4603,6 +4703,9 @@ def main() -> int:
     print("slice 3 kernel checks (K6 at M=7208, K=4096, N=1024; K2 on "
           "(8, 16, 901, 64)):")
     vit_rows = vit_kernel_checks()
+    print(f"CLIP preprocess kernel check ({CLIP_BATCH}, {CLIP_HW[0]}, "
+          f"{CLIP_HW[1]}, 3) -> {CLIP_SIZE}:")
+    clip_row = clip_resample_check()
     from avlmaps_torch.ops import segment_scatter as ss
 
     k5_row = dict(name="sorted_segment_scatter_add",
@@ -4664,7 +4767,7 @@ def main() -> int:
         print("slice 7: area and sound maps on the slice-1 scene, "
               "AVLMap.load_map, area / sound / multimodal queries at "
               "gs=1000:")
-        sound_area_run(enc, scene, rows[4:])
+        sound_area_run(enc, scene, rows[4:], clip_row)
         print("slice 8: SuperPoint, SuperGlue, NetVLAD, the visual map and "
               "AVLMap.index_image, the multi-scale LSeg eval and Wav2CLIP "
               "on the slice-1 scene:")
@@ -4733,10 +4836,11 @@ def main() -> int:
              "slice11_launches": "slice11_launches",
              "slice12_launches": "slice12_launches",
              "library_device_ms": "library_dev", "runs": "runs",
-             "real_step": "real_step"}
+             "real_step": "real_step", "staged_ms": "staged_ms",
+             "upload_ms": "upload_ms"}
     table = [{**{k: r[k] for k in keys},
               **{v: r[k] for k, v in extra.items() if k in r}}
-             for r in rows + [k5_row] + vit_rows]
+             for r in rows + [k5_row] + vit_rows + [clip_row]]
     print(json.dumps({"more_shapes": [
         {k: r[k] for k in ("shape", "device_ms", "library_device_ms",
                            "slice12_launches") + keys}

@@ -174,9 +174,10 @@ def test_kernels_build_lazily():
     importlib.import_module("avlmaps_torch.ops.segment_scatter")
     importlib.import_module("avlmaps_torch.ops.similarity")
     importlib.import_module("avlmaps_torch.ops.delivery")
+    importlib.import_module("avlmaps_torch.ops.clip_resample")
     assert build._libs == {}
-    assert set(build.sources()) == {"fused_vit", "segment_scatter",
-                                    "similarity"}
+    assert set(build.sources()) == {"clip_resample", "fused_vit",
+                                    "segment_scatter", "similarity"}
 
 
 def test_slice_3_modules_are_scanned():

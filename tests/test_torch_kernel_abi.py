@@ -82,3 +82,5 @@ def test_parser_reads_pointers_ints_and_floats():
     mha = c_signatures("fused_vit")["avl_mha"]
     assert mha[4] == ctypes.POINTER(ctypes.c_longlong)
     assert mha[-2] is ctypes.c_float
+    resample = c_signatures("clip_resample")["avl_clip_resample"]
+    assert resample[12:18] == [ctypes.c_float] * 6
