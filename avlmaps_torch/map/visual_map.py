@@ -18,6 +18,16 @@ utils/localization_utils.py:408-558).  As in the JAX package:
   and runs OpenCV's ``solvePnPRansac``; ``localize_image`` falls back to
   the retrieved frame's pose when matching or the solve fails.
 
+Each stage of an image query runs under a ``record_function`` range:
+``query.image.retrieve`` (the global descriptor and its product),
+``query.image.superpoint`` (the query's extraction), ``query.image.ref``
+(the retrieved frame's cached features, loaded on a miss),
+``query.image.decide`` (the matches out of the assignment and their copy
+to the host; SuperGlue opens ``query.image.gnn`` and
+``query.image.sinkhorn`` itself) and ``query.image.pnp`` (the depth lift
+and the solve).  ``stats`` counts queries, reference-feature misses,
+valid keypoints, matches and solves, from values already on the host.
+
 ``_to_gray`` reproduces OpenCV's uint8 RGB -> gray rounding in numpy, so
 SuperPoint sees the same pixels with or without OpenCV.  The ORB path and
 the solve need OpenCV and raise ``ImportError`` naming it where it is
@@ -35,6 +45,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from avlmaps_torch.geometry.transforms import pose_vec_to_tf
 from avlmaps_torch.map import hdf5
@@ -127,6 +138,10 @@ class VisualMap:
         self._depth_cache: dict = {}
         self._ref_cache: dict = {}
         self._sp_cache: dict = {}
+        # counts over the map's queries (host ints; none costs a sync)
+        self.stats = dict.fromkeys(
+            ("queries", "ref_misses", "keypoints_query", "keypoints_ref",
+             "matches", "pnp_attempted", "pnp_solved"), 0)
 
     def _init_clip(self):
         if self.clip_encoder is None:
@@ -192,14 +207,15 @@ class VisualMap:
     def retrieve(self, image: np.ndarray, topk: int = 1) -> np.ndarray:
         """Indices of the most similar mapping frames (reference
         localize_agent's retrieval, localization_utils.py:408-447)."""
-        enc = self._init_clip()
-        if (self.descriptors is not None and self.data_dir is not None
-                and self.descriptors.shape[1] != enc.feat_dim):
-            # another encoder's descriptors: load or compute this one's
-            self.create_and_load_map(self.data_dir)
-        q = enc.get_img_feats(image)
-        sims = (self.descriptors @ q.T).flatten()
-        return np.argsort(sims)[::-1][:topk]
+        with record_function("query.image.retrieve"):
+            enc = self._init_clip()
+            if (self.descriptors is not None and self.data_dir is not None
+                    and self.descriptors.shape[1] != enc.feat_dim):
+                # another encoder's descriptors: load or compute this one's
+                self.create_and_load_map(self.data_dir)
+            q = enc.get_img_feats(image)
+            sims = (self.descriptors @ q.T).flatten()
+            return np.argsort(sims)[::-1][:topk]
 
     def _ref_cam_tf(self, frame_id: int) -> np.ndarray:
         """Habitat-frame camera pose of a mapping frame: its base pose
@@ -255,6 +271,7 @@ class VisualMap:
             feats = {k: v[0] for k, v in out.items()}
             feats["hw"] = img.shape[:2]
             self._sp_cache[frame_id] = feats
+            self.stats["ref_misses"] += 1
         return self._sp_cache[frame_id]
 
     @staticmethod
@@ -267,28 +284,35 @@ class VisualMap:
         a SuperGlue is set, else SuperPoint + the mutual-NN matcher on the
         device (reference: HLoc's SuperPoint + SuperGlue,
         localization_utils.py:137-145, 247-273)."""
-        ref = self._sp_frame_features(frame_id)
+        with record_function("query.image.ref"):
+            ref = self._sp_frame_features(frame_id)
         if ref is None:
             return np.zeros((0, 2)), np.zeros((0, 2))
-        q = self.superpoint.extract(self._to_gray(query_image)[None])
-        q = {k: v[0] for k, v in q.items()}
+        with record_function("query.image.superpoint"):
+            q = self.superpoint.extract(self._to_gray(query_image)[None])
+            q = {k: v[0] for k, v in q.items()}
         if self.superglue is not None:
             idx, _ = self.superglue.match(
                 {k: v[None] for k, v in q.items()},
                 {k: v[None] for k, v in ref.items() if k != "hw"},
                 query_image.shape[:2], hw1=ref["hw"])
-            idx = _host(idx)[0]
+            with record_function("query.image.decide"):
+                idx = _host(idx)[0]
         else:
             from avlmaps_torch.models.superpoint import \
                 mutual_nearest_matches
 
             dev = self.device
-            idx, _ = mutual_nearest_matches(
-                to_device(q["descriptors"], dev),
-                to_device(ref["descriptors"], dev),
-                to_device(q["valid"], dev), to_device(ref["valid"], dev))
-            idx = _host(idx)
+            with record_function("query.image.decide"):
+                idx, _ = mutual_nearest_matches(
+                    to_device(q["descriptors"], dev),
+                    to_device(ref["descriptors"], dev),
+                    to_device(q["valid"], dev), to_device(ref["valid"], dev))
+                idx = _host(idx)
         sel = idx >= 0
+        self.stats["keypoints_query"] += int(q["valid"].sum())
+        self.stats["keypoints_ref"] += int(ref["valid"].sum())
+        self.stats["matches"] += int(sel.sum())
         return ref["keypoints"][idx[sel]], q["keypoints"][sel]
 
     def _match_orb(self, query_image: np.ndarray, frame_id: int):
@@ -327,7 +351,16 @@ class VisualMap:
             ref_pts, q_pts = self._match_orb(query_image, frame_id)
         if len(ref_pts) < min_matches:
             return None
+        with record_function("query.image.pnp"):
+            return self._solve_pose(ref_depth, ref_pts, q_pts, frame_id,
+                                    query_intr, min_matches, reproj_error)
 
+    def _solve_pose(self, ref_depth: np.ndarray, ref_pts: np.ndarray,
+                    q_pts: np.ndarray, frame_id: int, query_intr: np.ndarray,
+                    min_matches: int, reproj_error: float
+                    ) -> Optional[np.ndarray]:
+        """The depth lift of the matched reference pixels and the RANSAC
+        PnP solve of :meth:`refine_pose`."""
         h, w = ref_depth.shape
         inv_ref = np.linalg.inv(np.asarray(self.map_config.calib_matrix()))
         obj_pts, img_pts = [], []
@@ -345,6 +378,7 @@ class VisualMap:
             return None
 
         cv = _require_cv2("the PnP solve")
+        self.stats["pnp_attempted"] += 1
         ok, rvec, tvec, inliers = cv.solvePnPRansac(
             np.asarray(obj_pts, np.float64), np.asarray(img_pts, np.float64),
             np.asarray(query_intr, np.float64), None,
@@ -359,6 +393,7 @@ class VisualMap:
         t_qr[:3, 3] = tvec.reshape(3)
         ref_cam_cv = self._ref_cam_tf(frame_id) @ self._HAB2CV
         query_cam_cv = ref_cam_cv @ np.linalg.inv(t_qr)
+        self.stats["pnp_solved"] += 1
         return query_cam_cv @ np.linalg.inv(self._HAB2CV)
 
     def localize_image(self, image: np.ndarray,
@@ -369,6 +404,7 @@ class VisualMap:
         PnP refinement; the retrieved frame's pose when that fails."""
         if self.descriptors is None:
             raise RuntimeError("call create_and_load_map first")
+        self.stats["queries"] += 1
         best = int(self.retrieve(image, topk=1)[0])
         cam_tf: Optional[np.ndarray] = None
         if self.data_dir is not None and (self.data_dir / "depth").exists():

@@ -17,7 +17,10 @@ log-domain Sinkhorn with a learned dustbin.  As in the JAX package:
   the preceding dense layers when the weights are ported (``port.py``).
 
 Everything runs in f32 under ``full_f32``: the match decision is an
-argmax, and TF32 would flip it.
+argmax, and TF32 would flip it.  The forward runs under two
+``record_function`` ranges, ``query.image.gnn`` (the keypoint encoder
+through the final scores) and ``query.image.sinkhorn``; the matcher's
+decision runs under ``query.image.decide``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from avlmaps_torch.utils.device import full_f32, resolve_device, to_device
 
@@ -131,7 +135,7 @@ class SuperGlueNet(nn.Module):
         """``desc*``: L2-normalised SuperPoint descriptors (B, K, D);
         padded entries must be finite (zeros are fine).  Each set is
         normalised by ITS OWN image shape (``hw1`` defaults to ``hw0``)."""
-        with full_f32():
+        with record_function("query.image.gnn"), full_f32():
             d0 = desc0.float() + self.kenc(kpts0, scores0, hw0)
             d1 = desc1.float() + self.kenc(kpts1, scores1,
                                            hw1 if hw1 is not None else hw0)
@@ -147,8 +151,9 @@ class SuperGlueNet(nn.Module):
             m0, m1 = self.final_proj(d0), self.final_proj(d1)
             scores = torch.einsum("bnd,bmd->bnm", m0, m1) \
                 / self.cfg.desc_dim ** 0.5
-        return log_optimal_transport(scores, self.bin_score, valid0, valid1,
-                                     self.cfg.sinkhorn_iters)
+        with record_function("query.image.sinkhorn"):
+            return log_optimal_transport(scores, self.bin_score, valid0,
+                                         valid1, self.cfg.sinkhorn_iters)
 
 
 def log_optimal_transport(scores: torch.Tensor, alpha, valid0: torch.Tensor,
@@ -156,9 +161,9 @@ def log_optimal_transport(scores: torch.Tensor, alpha, valid0: torch.Tensor,
     """Masked log-domain Sinkhorn with a dustbin row and column, in f32.
 
     SuperGlue's ``log_optimal_transport`` on the valid submatrix: the
-    marginals use the VALID counts and padded rows/columns get ``NEG``
-    log-mass.  Each iteration updates ``u`` first, then ``v``, as the
-    JAX package does."""
+    marginals use the VALID counts, padded rows/columns get ``NEG``
+    log-mass and ``v`` starts at ``NEG`` on padded columns.  Each
+    iteration updates ``u`` first, then ``v``, as the JAX package does."""
     b, m, n = scores.shape
     dev = scores.device
     scores = scores.float()
@@ -179,7 +184,9 @@ def log_optimal_transport(scores: torch.Tensor, alpha, valid0: torch.Tensor,
     log_nu = torch.cat([torch.where(valid1, norm, neg),
                         safe_log(nv0)[:, None] + norm], dim=1)
     u = torch.zeros_like(log_mu)
-    v = torch.zeros_like(log_nu)
+    # padded columns start masked, so the first u update sums the valid
+    # set alone, as the unpadded release does
+    v = torch.where(log_nu > neg, 0.0, neg)
     for _ in range(iters):
         u = log_mu - torch.logsumexp(couplings + v[:, None, :], dim=2)
         v = log_nu - torch.logsumexp(couplings + u[:, :, None], dim=1)
@@ -251,7 +258,8 @@ class SuperGlueMatcher:
         to ``hw``).  Returns (matches0 (B, K0) int32, mscores0 (B, K0)) as
         tensors on the device."""
         Z = self.assignment(feats0, feats1, hw, hw1)
-        return match_from_assignment(
-            Z, to_device(feats0["valid"], self.device, torch.bool),
-            to_device(feats1["valid"], self.device, torch.bool),
-            threshold=self.cfg.match_threshold)
+        with record_function("query.image.decide"):
+            return match_from_assignment(
+                Z, to_device(feats0["valid"], self.device, torch.bool),
+                to_device(feats1["valid"], self.device, torch.bool),
+                threshold=self.cfg.match_threshold)
