@@ -17,7 +17,9 @@ log-domain Sinkhorn with a learned dustbin.  As in the JAX package:
   the preceding dense layers when the weights are ported (``port.py``).
 
 Everything runs in f32 under ``full_f32``: the match decision is an
-argmax, and TF32 would flip it.  The forward runs under two
+argmax, and TF32 would flip it.  The Sinkhorn, ``log_optimal_transport``,
+is ``ops/sinkhorn.py``'s ``sinkhorn``: on a card, one hand-written kernel
+a half-update.  The forward runs under two
 ``record_function`` ranges, ``query.image.gnn`` (the keypoint encoder
 through the final scores) and ``query.image.sinkhorn``; the matcher's
 decision runs under ``query.image.decide``.
@@ -33,9 +35,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from avlmaps_torch.ops.sinkhorn import NEG, sinkhorn as log_optimal_transport
 from avlmaps_torch.utils.device import full_f32, resolve_device, to_device
-
-NEG = -1e9  # masked log-mass / attention logit: exp(NEG) == 0.0 in f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,43 +155,6 @@ class SuperGlueNet(nn.Module):
         with record_function("query.image.sinkhorn"):
             return log_optimal_transport(scores, self.bin_score, valid0,
                                          valid1, self.cfg.sinkhorn_iters)
-
-
-def log_optimal_transport(scores: torch.Tensor, alpha, valid0: torch.Tensor,
-                          valid1: torch.Tensor, iters: int) -> torch.Tensor:
-    """Masked log-domain Sinkhorn with a dustbin row and column, in f32.
-
-    SuperGlue's ``log_optimal_transport`` on the valid submatrix: the
-    marginals use the VALID counts, padded rows/columns get ``NEG``
-    log-mass and ``v`` starts at ``NEG`` on padded columns.  Each
-    iteration updates ``u`` first, then ``v``, as the JAX package does."""
-    b, m, n = scores.shape
-    dev = scores.device
-    scores = scores.float()
-    nv0 = valid0.sum(dim=1).float()
-    nv1 = valid1.sum(dim=1).float()
-    norm = -torch.log(torch.clamp(nv0 + nv1, min=1.0))[:, None]  # (B, 1)
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=dev).reshape(
-        1, 1, 1).expand(b, 1, 1)
-    couplings = torch.cat([torch.cat([scores, a.expand(b, m, 1)], dim=2),
-                           torch.cat([a.expand(b, 1, n), a], dim=2)], dim=1)
-
-    def safe_log(x):
-        return torch.log(torch.clamp(x, min=1e-30))
-
-    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
-    log_mu = torch.cat([torch.where(valid0, norm, neg),
-                        safe_log(nv1)[:, None] + norm], dim=1)
-    log_nu = torch.cat([torch.where(valid1, norm, neg),
-                        safe_log(nv0)[:, None] + norm], dim=1)
-    u = torch.zeros_like(log_mu)
-    # padded columns start masked, so the first u update sums the valid
-    # set alone, as the unpadded release does
-    v = torch.where(log_nu > neg, 0.0, neg)
-    for _ in range(iters):
-        u = log_mu - torch.logsumexp(couplings + v[:, None, :], dim=2)
-        v = log_nu - torch.logsumexp(couplings + u[:, :, None], dim=1)
-    return couplings + u[:, :, None] + v[:, None, :] - norm[..., None]
 
 
 def match_from_assignment(Z: torch.Tensor, valid0: torch.Tensor,

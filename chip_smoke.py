@@ -27,6 +27,13 @@
    on the host; the kernel, plain and PIL times, the encoder's path from
    host frames (copy into pinned staging, upload, kernel) and the upload
    alone, and its bytes bound from the input span the crop's taps read.
+   Then SuperGlue's Sinkhorn kernel (``sinkhorn``) at the image query's
+   shape, 4096 x 4096 keypoints and 100 iterations, all valid and with
+   padded columns: Z within 1e-4 of its plain version (the torch loop) on
+   the card and the same match decision; the kernel and plain times
+   beside its bytes bound (4.03 ms).  Its ``launches`` are slice 8's,
+   one for each of SuperGlue's Sinkhorns on the card there, else slice 8
+   fails.
 3. Slice 1, map construction: writes a synthetic 720x1080 RGB-D scene,
    builds it with ``VLMapBuilder`` and the ViT-L/16 LSeg in bf16 (seeded
    random weights) at gs=1000, cs=0.05, vh=30, capacity 1e6, D=512, batch
@@ -773,6 +780,70 @@ def clip_resample_check():
           f"host frames to the card's batch {staged_ms:.4f} ms, the pinned "
           f"upload {row['upload_ms']:.4f} ms")
     del dev, pinned, pre
+    torch.cuda.empty_cache()
+    return row
+
+
+SINKHORN_K = 4096  # the image query's keypoints a side (HLoc's)
+SINKHORN_ITERS = 100
+SINKHORN_TOL = 1e-4  # tests/test_torch_sinkhorn.py's TOL, its reason there
+
+
+def sinkhorn_check():
+    """SuperGlue's Sinkhorn kernel at the image query's shape: (1, 4096,
+    4096) seeded scores (a permutation planted), 100 iterations, all valid
+    and with the last quarter of the columns padded; raises unless Z is
+    within ``SINKHORN_TOL`` of the plain version's over the valid rows and
+    columns and the dustbins and the match decision is the same.  The row
+    times the kernel (CUDA events; device ms from the profiler) and the
+    plain loop; the bound is one f32 read of the 4097 x 4097 coupling a
+    half-update and Z's write (the benchmark's count)."""
+    import torch
+
+    from avlmaps_torch.models.superglue import match_from_assignment
+    from avlmaps_torch.ops import sinkhorn as sk
+
+    k, iters = SINKHORN_K, SINKHORN_ITERS
+    g = torch.Generator().manual_seed(21)
+    scores = torch.randn(1, k, k, generator=g)
+    scores[:, torch.arange(k), torch.randperm(k, generator=g)] += 12.0
+    scores = scores.cuda()
+    alpha = torch.tensor(1.0, device="cuda")
+    valid0 = torch.ones(1, k, dtype=torch.bool, device="cuda")
+    gaps = {}
+    for name, valid1 in (("all valid", valid0),
+                         ("columns padded", torch.arange(
+                             k, device="cuda")[None] < 3 * k // 4)):
+        z = sk.sinkhorn(scores, alpha, valid0, valid1, iters)
+        zp = sk.sinkhorn_ref(scores, alpha, valid0, valid1, iters)
+        cols = torch.cat([valid1, valid1.new_ones(1, 1)], 1)
+        gap = float((z - zp).abs()[:, :, cols[0]].max())
+        same = torch.equal(match_from_assignment(z, valid0, valid1)[0],
+                           match_from_assignment(zp, valid0, valid1)[0])
+        print(f"  sinkhorn {name}: max |Z - Z_plain| {gap:.3e} (tolerance "
+              f"{SINKHORN_TOL:g}), same decision {same}")
+        if not (bool(torch.isfinite(z).all()) and gap <= SINKHORN_TOL
+                and same):
+            raise AssertionError(f"sinkhorn ({name}) differs from its plain "
+                                 "version")
+        gaps[name] = gap
+    kern = lambda: sk.sinkhorn(scores, alpha, valid0, valid0,  # noqa: E731
+                               iters)
+    plain = lambda: sk.sinkhorn_ref(scores, alpha, valid0,  # noqa: E731
+                                    valid0, iters)
+    nbytes = (2 * iters + 1) * 4 * (k + 1) ** 2
+    row = dict(name="sinkhorn", fn=sk.sinkhorn, route="cuda",
+               source="avlmaps_torch/csrc/sinkhorn.cu", replaces="none",
+               max_abs_err=max(gaps.values()), ms=time_ms(kern, 10),
+               device_ms=device_ms(kern, 3),
+               plain_ms=time_ms(plain, 3), bound_ms=nbytes / PEAK_BYTES * 1e3,
+               bound_by="bytes", library_ms=None)
+    print(f"  sinkhorn (1, {k}, {k}), {iters} iterations: kernel "
+          f"{row['ms']:.4f} ms (device {row['device_ms']:.4f} ms, "
+          f"profiler), plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms (bytes: {nbytes / 1e9:.2f} GB), "
+          f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
+    del scores, z, zp
     torch.cuda.empty_cache()
     return row
 
@@ -2738,18 +2809,54 @@ def wav2clip_check(scene: Path, checks: dict):
     return ms
 
 
-def image_query_run(enc, scene: Path, tmp: Path, vit_rows, score_rows):
+def image_query_run(enc, scene: Path, tmp: Path, vit_rows, score_rows,
+                    sink_row):
     """Slice 8 on the slice-1 scene: SuperPoint, SuperGlue and NetVLAD at
     full width against the CPU, retrieval with NetVLAD and CLIP, the
     textured refinement, ``AVLMap.index_image`` and its fused goal, the
     multi-scale LSeg eval and Wav2CLIP.  ``vit_rows`` are K1-K3's kernel
     rows, ``score_rows`` K7's and K8's; each gets its slice-8 count.
-    Returns K1-K3's rows at the multi-scale eval's other shapes."""
-    from avlmaps_torch.map.visual_map import rgb_to_gray_u8
-    from avlmaps_torch.pipeline.loader import load_rgb
+    ``sink_row`` gets the Sinkhorn kernel's launches over the phase, which
+    must be one for each of SuperGlue's Sinkhorns on a CUDA tensor (and
+    there must be some).  Returns K1-K3's rows at the multi-scale eval's
+    other shapes."""
+    from avlmaps_torch.models.superglue import model as sg_model
 
     t_phase = time.perf_counter()
     checks = {}
+    sinkhorn = sg_model.log_optimal_transport
+    on_card = [0]
+
+    def counted(scores, *args):
+        on_card[0] += scores.is_cuda
+        return sinkhorn(scores, *args)
+
+    sink_row["fn"].launches = 0
+    sg_model.log_optimal_transport = counted
+    try:
+        shape_rows = _image_query_phase(enc, scene, tmp, vit_rows,
+                                        score_rows, checks)
+    finally:
+        sg_model.log_optimal_transport = sinkhorn
+    sink_row["launches"] = sink_row["fn"].launches
+    print(f"  sinkhorn: {sink_row['launches']} kernel launches for "
+          f"{on_card[0]} SuperGlue Sinkhorns on the card")
+    checks["SuperGlue's Sinkhorn on the card: the kernel once a match"] = \
+        on_card[0] >= 1 and sink_row["launches"] == on_card[0]
+    print(f"  slice 8 phase: {time.perf_counter() - t_phase:.1f} s wall")
+    for name, ok in checks.items():
+        print(f"  {'pass' if ok else 'FAIL'}: {name}")
+    if not all(checks.values()):
+        raise AssertionError("slice 8: the image query path failed")
+    return shape_rows
+
+
+def _image_query_phase(enc, scene: Path, tmp: Path, vit_rows, score_rows,
+                       checks: dict):
+    """The checks of :func:`image_query_run`, each into ``checks``."""
+    from avlmaps_torch.map.visual_map import rgb_to_gray_u8
+    from avlmaps_torch.pipeline.loader import load_rgb
+
     frames = [load_rgb(p) for p in sorted((scene / "rgb").glob("*.png"))]
     try:
         import cv2
@@ -2769,11 +2876,6 @@ def image_query_run(enc, scene: Path, tmp: Path, vit_rows, score_rows):
     image_query_check(enc, scene, frames, score_rows, checks)
     shape_rows = multi_scale_check(frames, vit_rows, checks)
     wav2clip_check(scene, checks)
-    print(f"  slice 8 phase: {time.perf_counter() - t_phase:.1f} s wall")
-    for name, ok in checks.items():
-        print(f"  {'pass' if ok else 'FAIL'}: {name}")
-    if not all(checks.values()):
-        raise AssertionError("slice 8: the image query path failed")
     return shape_rows
 
 
@@ -4706,6 +4808,9 @@ def main() -> int:
     print(f"CLIP preprocess kernel check ({CLIP_BATCH}, {CLIP_HW[0]}, "
           f"{CLIP_HW[1]}, 3) -> {CLIP_SIZE}:")
     clip_row = clip_resample_check()
+    print(f"SuperGlue Sinkhorn kernel check (1, {SINKHORN_K}, {SINKHORN_K}), "
+          f"{SINKHORN_ITERS} iterations:")
+    sink_row = sinkhorn_check()
     from avlmaps_torch.ops import segment_scatter as ss
 
     k5_row = dict(name="sorted_segment_scatter_add",
@@ -4772,7 +4877,7 @@ def main() -> int:
               "AVLMap.index_image, the multi-scale LSeg eval and Wav2CLIP "
               "on the slice-1 scene:")
         thr_rows += image_query_run(enc, scene, Path(tmp), rows[:3],
-                                    rows[4:])
+                                    rows[4:], sink_row)
         print("slice 9: VLMapMultiFloor.index_map, HabitatLanguageRobot on "
               "the slice-1 map (card and CPU), the port's CLIs:")
         robot_run(enc, scene, mf_scene, Path(tmp), rows[4:], s9_checks)
@@ -4840,7 +4945,7 @@ def main() -> int:
              "upload_ms": "upload_ms"}
     table = [{**{k: r[k] for k in keys},
               **{v: r[k] for k, v in extra.items() if k in r}}
-             for r in rows + [k5_row] + vit_rows + [clip_row]]
+             for r in rows + [k5_row] + vit_rows + [clip_row, sink_row]]
     print(json.dumps({"more_shapes": [
         {k: r[k] for k in ("shape", "device_ms", "library_device_ms",
                            "slice12_launches") + keys}

@@ -175,9 +175,11 @@ def test_kernels_build_lazily():
     importlib.import_module("avlmaps_torch.ops.similarity")
     importlib.import_module("avlmaps_torch.ops.delivery")
     importlib.import_module("avlmaps_torch.ops.clip_resample")
+    importlib.import_module("avlmaps_torch.ops.sinkhorn")
     assert build._libs == {}
     assert set(build.sources()) == {"clip_resample", "fused_vit",
-                                    "segment_scatter", "similarity"}
+                                    "segment_scatter", "similarity",
+                                    "sinkhorn"}
 
 
 def test_slice_3_modules_are_scanned():

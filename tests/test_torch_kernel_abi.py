@@ -84,3 +84,5 @@ def test_parser_reads_pointers_ints_and_floats():
     assert mha[-2] is ctypes.c_float
     resample = c_signatures("clip_resample")["avl_clip_resample"]
     assert resample[12:18] == [ctypes.c_float] * 6
+    assert c_signatures("sinkhorn")["avl_sinkhorn"] == [
+        ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
