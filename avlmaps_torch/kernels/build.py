@@ -12,6 +12,12 @@ of them (a cold build costs as long as the slowest source, not the sum).
 :func:`start_compile` / :func:`finish_compile` name and install any
 library this way; ``nav/native.py`` builds the planner's C++ core with
 them and ``g++``.
+
+This module is also the one seam between the ``ops/`` wrappers and the
+libraries: :func:`load` sets ``argtypes`` and ``restype`` on every
+``extern "C"`` function from the source's own declaration
+(:func:`signatures`), so a wrapper calls ``build.load(name).avl_...(...)``
+and checks the returned ``cudaError_t`` with :func:`check`.
 """
 
 from __future__ import annotations
@@ -36,6 +42,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+_EXTERN = re.compile(r'extern "C"\s+(\w+)\s+(\w+)\s*\(([^)]*)\)')
+_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float}
 
 
 def sources() -> List[str]:
@@ -156,16 +165,63 @@ def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
     return funcs
 
 
+def signatures(src: Path) -> Dict[str, list]:
+    """``{function: argtypes}`` of every ``extern "C"`` function of
+    ``src``: a pointer is ``c_void_p`` (``long long*`` is
+    ``POINTER(c_longlong)``), ``int`` and ``float`` are themselves.  Any
+    other parameter type, or a return type other than ``int`` (a
+    ``cudaError_t``), raises ``TypeError`` naming the function."""
+    sigs = {}
+    for ret, fn, params in _EXTERN.findall(src.read_text()):
+        if ret != "int":
+            raise TypeError(f"{src.name}: {fn} returns {ret}, not int")
+        types = []
+        for p in params.split(","):
+            ctype = re.match(r"\s*(.*?)\s*\w+\s*$", p).group(1)
+            if "*" in ctype:
+                types.append(ctypes.POINTER(ctypes.c_longlong)
+                             if "long long" in ctype else ctypes.c_void_p)
+            elif ctype in _SCALARS:
+                types.append(_SCALARS[ctype])
+            else:
+                raise TypeError(f"{src.name}: {fn} has a parameter "
+                                f"{p.strip()!r} of no ctypes type here")
+        sigs[fn] = types
+    return sigs
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu``, building it if needed,
+    with :func:`signatures` set on its functions (once, at first load)."""
+    lib = _libs.get(name)  # a bound library: no lock on the launch path
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
+        src = CSRC_DIR / f"{name}.cu"
+        sigs = signatures(src)
         started = _start(name)
         if started is not None:
             _finish(*started)
-        lib = ctypes.CDLL(str(library_target(CSRC_DIR / f"{name}.cu",
-                                                NVCC_FLAGS)))
+        lib = ctypes.CDLL(str(library_target(src, NVCC_FLAGS)))
+        for fn, types in sigs.items():
+            f = getattr(lib, fn)
+            f.argtypes = types
+            f.restype = ctypes.c_int
         _libs[name] = lib
         return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise ``RuntimeError`` unless a launch returned ``cudaSuccess``."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def require(cond: bool, msg: str, *args) -> None:
+    """Raise ``ValueError(msg.format(*args))`` unless ``cond``: the message
+    is formatted only on failure, since every launch checks its inputs."""
+    if not cond:
+        raise ValueError(msg.format(*args) if args else msg)

@@ -26,7 +26,6 @@ shape.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 import threading
@@ -38,14 +37,11 @@ import torch
 from torch.profiler import record_function
 
 from avlmaps_torch.kernels import build
+from avlmaps_torch.kernels.build import require
 
 PRECISION_BITS = 22  # Resample.c: 32 - 8 bits of the pixel - 2 of headroom
 _HALF = 1 << (PRECISION_BITS - 1)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "avl_clip_resample": [_P, _P, _P] + [_I] * 9 + [_F] * 6 + [_P],
-}
 _BAND = 16                  # output rows a block
 # numpy's copy releases the GIL: 64 720x1080 frames from a fresh memmap
 # into pinned memory took 42 ms on one thread, 13.6 on 4 and 11.7 on 8
@@ -53,17 +49,6 @@ _BAND = 16                  # output rows a block
 _COPY_THREADS = 8
 _SMEM_BUDGET = 72 * 1024    # three blocks an SM at the CLIP shapes
 _SMEM_MAX = 232448          # what one block may opt in to on Hopper
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("clip_resample")
-    if not getattr(lib, "_avl_bound", False):
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib._avl_bound = True
-    return lib
 
 
 def _bicubic(x: float) -> float:
@@ -174,11 +159,6 @@ def clip_resample_ref(frames: torch.Tensor, size: int, mean: Sequence[float],
         / torch.as_tensor(np.asarray(std, np.float32), **f32)
 
 
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
 def _launch_shape(t: CropTables, size: int):
     """(band, rows, pitch, shared bytes): ``pitch`` is a staged input row's
     bytes (the columns the crop reads, plus up to 15 of 16-byte
@@ -213,37 +193,36 @@ def clip_resample(frames: torch.Tensor, size: int, mean: Sequence[float],
                   std: Sequence[float]) -> torch.Tensor:
     """(B, H, W, 3) uint8 -> (B, size, size, 3) f32: PIL's bicubic resize
     of the short side to ``size``, the centre crop and the normalise."""
-    _require(frames.dim() == 4 and frames.shape[-1] == 3
-             and frames.dtype == torch.uint8,
-             f"clip_resample: need (B, H, W, 3) uint8, got "
-             f"{tuple(frames.shape)} {frames.dtype}")
-    _require(frames.shape[1] > 0 and frames.shape[2] > 0,
-             "clip_resample: empty frame")
+    require(frames.dim() == 4 and frames.shape[-1] == 3
+            and frames.dtype == torch.uint8,
+            "clip_resample: need (B, H, W, 3) uint8, got {} {}",
+            tuple(frames.shape), frames.dtype)
+    require(frames.shape[1] > 0 and frames.shape[2] > 0,
+            "clip_resample: empty frame")
     if frames.device.type == "cpu":
         return clip_resample_ref(frames, size, mean, std)
-    _require(frames.is_cuda, f"clip_resample: unsupported device "
-             f"{frames.device}")
-    _require(frames.is_contiguous(), "clip_resample: frames must be "
-             "contiguous")
+    require(frames.is_cuda, "clip_resample: unsupported device {}",
+            frames.device)
+    require(frames.is_contiguous(), "clip_resample: frames must be "
+            "contiguous")
     b, h, w, _ = frames.shape
-    _require(b < 65536, f"clip_resample: at most 65535 frames a call, got {b}")
+    require(b < 65536, "clip_resample: at most 65535 frames a call, got {}",
+            b)
     tab, kh, kv, (band, rows, pitch, smem) = _device_tables(
         h, w, size, frames.device)
-    _require(smem <= _SMEM_MAX, f"clip_resample: a {w}-pixel-wide frame "
-             f"needs {smem} bytes of shared memory")
+    require(smem <= _SMEM_MAX, "clip_resample: a {}-pixel-wide frame needs "
+            "{} bytes of shared memory", w, smem)
     out = torch.empty((b, size, size, 3), dtype=torch.float32,
                       device=frames.device)
     if b == 0:
         return out
     m = [float(v) for v in np.asarray(mean, np.float32)]
     s = [float(v) for v in np.asarray(std, np.float32)]
-    rc = _lib().avl_clip_resample(
+    build.check(build.load("clip_resample").avl_clip_resample(
         frames.data_ptr(), out.data_ptr(), tab.data_ptr(), b, h, w, size, kh,
         kv, band, rows, pitch, *m, *s,
-        torch.cuda.current_stream(frames.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"clip_resample: CUDA launch failed with "
-                           f"cudaError {rc}")
+        torch.cuda.current_stream(frames.device).cuda_stream),
+        "clip_resample")
     clip_resample.launches += 1
     return out
 
@@ -257,8 +236,8 @@ def _as_frame(img) -> np.ndarray:
     a = np.asarray(img)
     if a.shape[0] == 0 or a.shape[1] == 0:
         return np.zeros((1, 1, 3), np.uint8)
-    _require(a.ndim == 3 and a.shape[2] == 3,
-             f"clip_resample: need HWC RGB frames, got {a.shape}")
+    require(a.ndim == 3 and a.shape[2] == 3,
+            "clip_resample: need HWC RGB frames, got {}", a.shape)
     return a if a.dtype == np.uint8 else a.astype(np.uint8)
 
 

@@ -46,15 +46,9 @@ import torch
 import torch.nn.functional as F
 
 from avlmaps_torch.kernels import build
+from avlmaps_torch.kernels.build import require
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_I64P = ctypes.POINTER(ctypes.c_longlong)
-_SIGNATURES = {
-    "avl_ln_matmul": [_P] * 7 + [_I] * 3 + [_F, _P],
-    "avl_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_F, _P],
-    "avl_mha": [_P] * 4 + [_I64P] + [_I] * 4 + [_F, _P],
-    "avl_gelu_matmul": [_P] * 5 + [_I] * 3 + [_P],
-}
+_LIB = "fused_vit"
 
 # Route the ViT MLP sub-block through ln_mlp_residual (K3) instead of the
 # ln_matmul / gelu_matmul pair; read at call time.
@@ -66,41 +60,18 @@ MLP_FUSE = True
 _MLP_FUSE_MAX_BYTES = 24 * 2 ** 20
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("fused_vit")
-    if not getattr(lib, "_avl_bound", False):
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib._avl_bound = True
-    return lib
-
-
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-
-
-def _require(cond: bool, msg: str, *args) -> None:
-    """Raise ValueError(msg.format(*args)) unless ``cond``: the message is
-    formatted only on failure, since every launch checks its inputs."""
-    if not cond:
-        raise ValueError(msg.format(*args))
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
-        _require(t.device == dev, "{}: tensors on {} and {}", name, t.device,
-                 dev)
-        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
-                 "{}: tensor of shape {} is not contiguous and 16-byte "
-                 "aligned", name, tuple(t.shape))
+        require(t.device == dev, "{}: tensors on {} and {}", name, t.device,
+                dev)
+        require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                "{}: tensor of shape {} is not contiguous and 16-byte "
+                "aligned", name, tuple(t.shape))
 
 
 def _vec_f32(v: torch.Tensor) -> torch.Tensor:
@@ -146,26 +117,26 @@ def ln_matmul(x2d: torch.Tensor, ln_scale: torch.Tensor,
     GEMM reads."""
     if x2d.device.type == "cpu":
         return ln_matmul_ref(x2d, ln_scale, ln_bias, w, bias, eps=eps)
-    _require(x2d.is_cuda, "ln_matmul: unsupported device {}", x2d.device)
+    require(x2d.is_cuda, "ln_matmul: unsupported device {}", x2d.device)
     m, k = x2d.shape
     n = w.shape[0]
-    _require(x2d.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
-             "ln_matmul: kernel takes bf16 x and w, got {}, {}", x2d.dtype,
-             w.dtype)
-    _require(w.shape == (n, k) and ln_scale.shape == (k,)
-             and ln_bias.shape == (k,) and bias.shape == (n,),
-             "ln_matmul: shape mismatch")
-    _require(k % 256 == 0 and k <= 1024 and n % 128 == 0,
-             "ln_matmul: kernel needs K % 256 == 0, K <= 1024 and "
-             "N % 128 == 0, got K={}, N={}", k, n)
+    require(x2d.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
+            "ln_matmul: kernel takes bf16 x and w, got {}, {}", x2d.dtype,
+            w.dtype)
+    require(w.shape == (n, k) and ln_scale.shape == (k,)
+            and ln_bias.shape == (k,) and bias.shape == (n,),
+            "ln_matmul: shape mismatch")
+    require(k % 256 == 0 and k <= 1024 and n % 128 == 0,
+            "ln_matmul: kernel needs K % 256 == 0, K <= 1024 and "
+            "N % 128 == 0, got K={}, N={}", k, n)
     g, c, bb = _vec_f32(ln_scale), _vec_f32(ln_bias), _vec_f32(bias)
     _check_cuda("ln_matmul", x2d, w, g, c, bb)
     xn = torch.empty_like(x2d)
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
-    rc = _lib().avl_ln_matmul(x2d.data_ptr(), g.data_ptr(), c.data_ptr(),
-                              w.data_ptr(), bb.data_ptr(), xn.data_ptr(),
-                              out.data_ptr(), m, n, k, float(eps), _stream())
-    _raise_on(rc, "ln_matmul")
+    build.check(build.load(_LIB).avl_ln_matmul(
+        x2d.data_ptr(), g.data_ptr(), c.data_ptr(), w.data_ptr(),
+        bb.data_ptr(), xn.data_ptr(), out.data_ptr(), m, n, k, float(eps),
+        _stream()), "ln_matmul")
     ln_matmul.launches += 1
     return out
 
@@ -202,17 +173,16 @@ def _launch_mha(name: str, q: torch.Tensor, k: torch.Tensor,
     """K2 on operands given by base tensor and (batch, head, token)
     element strides; the head dim (64) is contiguous."""
     for i, x in enumerate((q, k, v, out)):
-        _require(x.device == q.device and x.dtype == torch.bfloat16,
-                 "{}: kernel takes bf16 on one device", name)
-        _require(x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-                 and all(st % 8 == 0 for st in strides[3 * i:3 * i + 3]),
-                 "{}: kernel needs 16-byte aligned rows of 64 contiguous "
-                 "elements", name)
+        require(x.device == q.device and x.dtype == torch.bfloat16,
+                "{}: kernel takes bf16 on one device", name)
+        require(x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+                and all(st % 8 == 0 for st in strides[3 * i:3 * i + 3]),
+                "{}: kernel needs 16-byte aligned rows of 64 contiguous "
+                "elements", name)
     arr = (ctypes.c_longlong * 12)(*strides)
-    rc = _lib().avl_mha(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), arr, b, t, n_heads, t_real,
-                        float(scale), _stream())
-    _raise_on(rc, name)
+    build.check(build.load(_LIB).avl_mha(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), arr, b, t,
+        n_heads, t_real, float(scale), _stream()), name)
 
 
 def mha_oneshot_2d_ref(qkv2d: torch.Tensor, b: int, t: int, n_heads: int, *,
@@ -245,16 +215,16 @@ def mha_oneshot_2d(qkv2d: torch.Tensor, b: int, t: int, n_heads: int, *,
     if t_real is None:
         t_real = t
     m, three_w = qkv2d.shape
-    _require(m == b * t and three_w % 3 == 0, "mha_oneshot_2d: shape")
-    _require(0 < t_real <= t, "mha_oneshot_2d: t_real={}, t={}", t_real, t)
+    require(m == b * t and three_w % 3 == 0, "mha_oneshot_2d: shape")
+    require(0 < t_real <= t, "mha_oneshot_2d: t_real={}, t={}", t_real, t)
     if qkv2d.device.type == "cpu":
         return mha_oneshot_2d_ref(qkv2d, b, t, n_heads, scale=scale,
                                   t_real=t_real)
-    _require(qkv2d.is_cuda, "mha_oneshot_2d: unsupported device {}",
-             qkv2d.device)
+    require(qkv2d.is_cuda, "mha_oneshot_2d: unsupported device {}",
+            qkv2d.device)
     w = three_w // 3
-    _require(w == n_heads * 64, "mha_oneshot_2d: kernel needs head dim 64, "
-             "got width {} over {} heads", w, n_heads)
+    require(w == n_heads * 64, "mha_oneshot_2d: kernel needs head dim 64, "
+            "got width {} over {} heads", w, n_heads)
     _check_cuda("mha_oneshot_2d", qkv2d)
     out = torch.empty((m, w), dtype=qkv2d.dtype, device=qkv2d.device)
     # q, k and v are column blocks of the qkv matrix: token stride 3W, head
@@ -280,13 +250,13 @@ def mha_bhtd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, t, d = q.shape
     if t_real is None:
         t_real = t
-    _require(k.shape == q.shape and v.shape == q.shape,
-             "mha_bhtd: q, k, v shapes differ")
-    _require(0 < t_real <= t, "mha_bhtd: t_real={}, t={}", t_real, t)
+    require(k.shape == q.shape and v.shape == q.shape,
+            "mha_bhtd: q, k, v shapes differ")
+    require(0 < t_real <= t, "mha_bhtd: t_real={}, t={}", t_real, t)
     if q.device.type == "cpu":
         return mha_bhtd_ref(q, k, v, scale=scale, t_real=t_real)
-    _require(q.is_cuda, "mha_bhtd: unsupported device {}", q.device)
-    _require(d == 64, "mha_bhtd: kernel needs head dim 64, got {}", d)
+    require(q.is_cuda, "mha_bhtd: unsupported device {}", q.device)
+    require(d == 64, "mha_bhtd: kernel needs head dim 64, got {}", d)
     out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
     strides = (_strides(q, 0, 1, 2) + _strides(k, 0, 1, 2)
                + _strides(v, 0, 1, 2) + _strides(out, 0, 1, 2))
@@ -332,30 +302,30 @@ def ln_mlp_residual(x2d: torch.Tensor, ln_scale: torch.Tensor,
     if x2d.device.type == "cpu":
         return ln_mlp_residual_ref(x2d, ln_scale, ln_bias, w1, b1, w2, b2,
                                    eps=eps)
-    _require(x2d.is_cuda, "ln_mlp_residual: unsupported device {}",
-             x2d.device)
+    require(x2d.is_cuda, "ln_mlp_residual: unsupported device {}",
+            x2d.device)
     m, k = x2d.shape
     n1 = w1.shape[0]
-    _require(all(t.dtype == torch.bfloat16 for t in (x2d, w1, w2)),
-             "ln_mlp_residual: kernel takes bf16 x, w1, w2")
-    _require(w1.shape == (n1, k) and w2.shape == (k, n1)
-             and b1.shape == (n1,) and b2.shape == (k,)
-             and ln_scale.shape == (k,) and ln_bias.shape == (k,),
-             "ln_mlp_residual: shape mismatch")
-    _require(k % 256 == 0 and k <= 1024 and n1 % 128 == 0,
-             "ln_mlp_residual: kernel needs K % 256 == 0, K <= 1024 and "
-             "N1 % 128 == 0, got K={}, N1={}", k, n1)
+    require(all(t.dtype == torch.bfloat16 for t in (x2d, w1, w2)),
+            "ln_mlp_residual: kernel takes bf16 x, w1, w2")
+    require(w1.shape == (n1, k) and w2.shape == (k, n1)
+            and b1.shape == (n1,) and b2.shape == (k,)
+            and ln_scale.shape == (k,) and ln_bias.shape == (k,),
+            "ln_mlp_residual: shape mismatch")
+    require(k % 256 == 0 and k <= 1024 and n1 % 128 == 0,
+            "ln_mlp_residual: kernel needs K % 256 == 0, K <= 1024 and "
+            "N1 % 128 == 0, got K={}, N1={}", k, n1)
     g, c = _vec_f32(ln_scale), _vec_f32(ln_bias)
     bb1, bb2 = _vec_f32(b1), _vec_f32(b2)
     _check_cuda("ln_mlp_residual", x2d, w1, w2, g, c, bb1, bb2)
     xn = torch.empty_like(x2d)
     h = torch.empty((m, n1), dtype=x2d.dtype, device=x2d.device)
     out = torch.empty_like(x2d)
-    rc = _lib().avl_ln_mlp_residual(
+    build.check(build.load(_LIB).avl_ln_mlp_residual(
         x2d.data_ptr(), g.data_ptr(), c.data_ptr(), w1.data_ptr(),
         bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), xn.data_ptr(),
-        h.data_ptr(), out.data_ptr(), m, k, n1, float(eps), _stream())
-    _raise_on(rc, "ln_mlp_residual")
+        h.data_ptr(), out.data_ptr(), m, k, n1, float(eps), _stream()),
+        "ln_mlp_residual")
     ln_mlp_residual.launches += 1
     return out
 
@@ -390,25 +360,24 @@ def gelu_matmul(x2d: torch.Tensor, w: torch.Tensor,
     bf16 operand to a scratch buffer that the wgmma GEMM reads."""
     if x2d.device.type == "cpu":
         return gelu_matmul_ref(x2d, w, bias)
-    _require(x2d.is_cuda, "gelu_matmul: unsupported device {}", x2d.device)
+    require(x2d.is_cuda, "gelu_matmul: unsupported device {}", x2d.device)
     m, k = x2d.shape
     n = w.shape[0]
-    _require(x2d.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
-             "gelu_matmul: kernel takes bf16 x and w, got {}, {}",
-             x2d.dtype, w.dtype)
-    _require(w.shape == (n, k) and bias.shape == (n,),
-             "gelu_matmul: shape mismatch")
-    _require(k % 64 == 0 and n % 128 == 0,
-             "gelu_matmul: kernel needs K % 64 == 0 and N % 128 == 0, got "
-             "K={}, N={}", k, n)
+    require(x2d.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
+            "gelu_matmul: kernel takes bf16 x and w, got {}, {}",
+            x2d.dtype, w.dtype)
+    require(w.shape == (n, k) and bias.shape == (n,),
+            "gelu_matmul: shape mismatch")
+    require(k % 64 == 0 and n % 128 == 0,
+            "gelu_matmul: kernel needs K % 64 == 0 and N % 128 == 0, got "
+            "K={}, N={}", k, n)
     bb = _vec_f32(bias)
     _check_cuda("gelu_matmul", x2d, w, bb)
     gx = torch.empty_like(x2d)
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
-    rc = _lib().avl_gelu_matmul(x2d.data_ptr(), w.data_ptr(), bb.data_ptr(),
-                                gx.data_ptr(), out.data_ptr(), m, n, k,
-                                _stream())
-    _raise_on(rc, "gelu_matmul")
+    build.check(build.load(_LIB).avl_gelu_matmul(
+        x2d.data_ptr(), w.data_ptr(), bb.data_ptr(), gx.data_ptr(),
+        out.data_ptr(), m, n, k, _stream()), "gelu_matmul")
     gelu_matmul.launches += 1
     return out
 

@@ -31,35 +31,16 @@ plain version adds its rows, the kernels skip them.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from avlmaps_torch.kernels import build
+from avlmaps_torch.kernels.build import require
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_LIB = "segment_scatter"
 
 # The JAX package's route rule (its SMEM prefetch budget), kept so that the
 # same batch takes the same route in both packages.
 _SPLIT_MAX_ROWS = 100_000
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("segment_scatter")
-    if not getattr(lib, "_avl_bound", False):
-        fn = lib.avl_segment_scatter_add_split
-        fn.argtypes = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]
-        fn.restype = ctypes.c_int
-        fn = lib.avl_segment_scatter_add
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
-        fn.restype = ctypes.c_int
-        lib._avl_bound = True
-    return lib
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
 
 
 def _kernel_takes_rows(s: int) -> bool:
@@ -70,12 +51,12 @@ def _kernel_takes_rows(s: int) -> bool:
 
 def _check_cuda(name: str, accum: torch.Tensor, slots: torch.Tensor,
                 *rows: torch.Tensor) -> None:
-    _require(accum.is_cuda, f"{name}: unsupported device {accum.device}")
-    _require(accum.dtype == torch.float32 and slots.dtype == torch.int32,
-             f"{name}: accum f32 and slots int32")
+    require(accum.is_cuda, "{}: unsupported device {}", name, accum.device)
+    require(accum.dtype == torch.float32 and slots.dtype == torch.int32,
+            "{}: accum f32 and slots int32", name)
     for t in (accum, slots, *rows):
-        _require(t.device == accum.device and t.is_contiguous(),
-                 f"{name}: inputs must be contiguous and on one device")
+        require(t.device == accum.device and t.is_contiguous(),
+                "{}: inputs must be contiguous and on one device", name)
 
 
 def _skip_slot(s: int) -> int:
@@ -112,21 +93,19 @@ def split_kernel(accum: torch.Tensor, slots: torch.Tensor,
     s, wd = accum.shape
     d = feats.shape[1]
     _check_cuda(name, accum, slots, feats, w, aux)
-    _require(w.dtype == torch.float32 and aux.dtype == torch.float32,
-             f"{name}: w and aux f32")
-    _require(feats.dtype in (torch.float32, torch.bfloat16),
-             f"{name}: feats {feats.dtype}")
-    _require(feats.shape == (b, d) and w.shape == (b,)
-             and aux.shape == (b, wd - d), f"{name}: shape mismatch")
-    _require(d % 32 == 0 and wd % 32 == 0 and wd <= 1024,
-             f"{name}: the split kernel needs d, W multiples of 32 and "
-             f"W <= 1024, got d={d}, W={wd}")
-    rc = _lib().avl_segment_scatter_add_split(
+    require(w.dtype == torch.float32 and aux.dtype == torch.float32,
+            "{}: w and aux f32", name)
+    require(feats.dtype in (torch.float32, torch.bfloat16), "{}: feats {}",
+            name, feats.dtype)
+    require(feats.shape == (b, d) and w.shape == (b,)
+            and aux.shape == (b, wd - d), "{}: shape mismatch", name)
+    require(d % 32 == 0 and wd % 32 == 0 and wd <= 1024,
+            "{}: the split kernel needs d, W multiples of 32 and W <= 1024, "
+            "got d={}, W={}", name, d, wd)
+    build.check(build.load(_LIB).avl_segment_scatter_add_split(
         accum.data_ptr(), slots.data_ptr(), feats.data_ptr(),
         int(feats.dtype == torch.bfloat16), w.data_ptr(), aux.data_ptr(), b,
-        d, wd, _skip_slot(s), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+        d, wd, _skip_slot(s), torch.cuda.current_stream().cuda_stream), name)
     sorted_segment_scatter_add_split.launches += 1
     return accum
 
@@ -170,17 +149,15 @@ def sorted_segment_scatter_add_ref(accum: torch.Tensor, slots: torch.Tensor,
 
 
 def sorted_segment_scatter_add(accum: torch.Tensor, slots: torch.Tensor,
-                               updates: torch.Tensor, *,
-                               rle: bool = True) -> torch.Tensor:
+                               updates: torch.Tensor) -> torch.Tensor:
     """``accum[slots[k]] += updates[k]`` in place for ascending ``slots``;
     returns ``accum``.
 
     accum: (S, W) f32; slots: (B,) int32 ascending; updates: (B, W) f32.
-    ``rle`` is accepted for the JAX signature and changes nothing: its two
-    TPU kernels are bitwise equal, and one in-order sum per run gives the
-    same by construction.  On CUDA, ``S % 8 == 1`` discards the trash
-    row's updates; ``S % 8`` not in {0, 1} takes ``index_add_``."""
-    del rle
+    The JAX package's two TPU payload kernels are bitwise equal, and one
+    in-order sum per run gives the same by construction, so the port has
+    one.  On CUDA, ``S % 8 == 1`` discards the trash row's updates;
+    ``S % 8`` not in {0, 1} takes ``index_add_``."""
     b = slots.shape[0]
     if b == 0:
         return accum
@@ -193,12 +170,10 @@ def sorted_segment_scatter_add(accum: torch.Tensor, slots: torch.Tensor,
         return accum.index_add_(0, slots.long(), updates.float())
     updates = updates.float().contiguous()
     _check_cuda(name, accum, slots, updates)
-    _require(updates.shape == (b, wd), f"{name}: shape mismatch")
-    rc = _lib().avl_segment_scatter_add(
+    require(updates.shape == (b, wd), "{}: shape mismatch", name)
+    build.check(build.load(_LIB).avl_segment_scatter_add(
         accum.data_ptr(), slots.data_ptr(), updates.data_ptr(), b, wd,
-        _skip_slot(s), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+        _skip_slot(s), torch.cuda.current_stream().cuda_stream), name)
     sorted_segment_scatter_add.launches += 1
     return accum
 

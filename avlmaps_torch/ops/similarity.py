@@ -23,37 +23,16 @@ C needs more than one category chunk of shared memory).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from avlmaps_torch.kernels import build
+from avlmaps_torch.kernels.build import require
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "avl_score_features": [_P, _P, _P] + [_I] * 7 + [_P],
-    "avl_score_argmax": [_P, _P, _P, _P] + [_I] * 6 + [_P],
-}
+_LIB = "similarity"
 # shared memory one block gives to its chunk of text rows: at D = 512 that
 # is 48 categories, so the serving shape (C = 22) and the ~40-category
 # init_categories lists read x once
 _TEXT_SMEM_BYTES = 100 * 1024
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("similarity")
-    if not getattr(lib, "_avl_bound", False):
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib._avl_bound = True
-    return lib
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
 
 
 def _text_hat(text_feats: torch.Tensor, normalize_text: bool) -> torch.Tensor:
@@ -86,31 +65,26 @@ def score_argmax_ref(map_feats: torch.Tensor, text_feats: torch.Tensor,
 
 
 def _check_cuda(name: str, x: torch.Tensor, t: torch.Tensor) -> None:
-    _require(x.is_cuda, f"{name}: unsupported device {x.device}")
-    _require(x.dim() == 2 and t.dim() == 2 and x.shape[1] == t.shape[1],
-             f"{name}: need (N, D) and (C, D), got {tuple(x.shape)} and "
-             f"{tuple(t.shape)}")
-    _require(x.dtype == torch.float32 and t.dtype == torch.float32,
-             f"{name}: the kernel takes f32, got {x.dtype} and {t.dtype}")
-    _require(t.device == x.device, f"{name}: operands on two devices")
+    require(x.is_cuda, "{}: unsupported device {}", name, x.device)
+    require(x.dim() == 2 and t.dim() == 2 and x.shape[1] == t.shape[1],
+            "{}: need (N, D) and (C, D), got {} and {}", name,
+            tuple(x.shape), tuple(t.shape))
+    require(x.dtype == torch.float32 and t.dtype == torch.float32,
+            "{}: the kernel takes f32, got {} and {}", name, x.dtype, t.dtype)
+    require(t.device == x.device, "{}: operands on two devices", name)
     for a in (x, t):
-        _require(a.is_contiguous() and a.data_ptr() % 16 == 0,
-                 f"{name}: operands must be contiguous and 16-byte aligned")
+        require(a.is_contiguous() and a.data_ptr() % 16 == 0,
+                "{}: operands must be contiguous and 16-byte aligned", name)
     d = x.shape[1]
-    _require(d % 4 == 0 and 0 < d <= 1024,
-             f"{name}: the kernel needs D a multiple of 4 and <= 1024, got "
-             f"{d}")
-    _require(x.shape[0] < 2 ** 31 and t.shape[0] >= 1,
-             f"{name}: need N < 2^31 and at least one category")
+    require(d % 4 == 0 and 0 < d <= 1024,
+            "{}: the kernel needs D a multiple of 4 and <= 1024, got {}",
+            name, d)
+    require(x.shape[0] < 2 ** 31 and t.shape[0] >= 1,
+            "{}: need N < 2^31 and at least one category", name)
 
 
 def _chunk(d: int) -> int:
     return max(1, _TEXT_SMEM_BYTES // (4 * d))
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
 def score_features(map_feats: torch.Tensor, text_feats: torch.Tensor,
@@ -129,11 +103,10 @@ def score_features(map_feats: torch.Tensor, text_feats: torch.Tensor,
     stream = torch.cuda.current_stream().cuda_stream
     step = _chunk(d)
     for c0 in range(0, c, step):
-        rc = _lib().avl_score_features(
+        build.check(build.load(_LIB).avl_score_features(
             map_feats.data_ptr(), text_feats.data_ptr(), out.data_ptr(), n,
             d, c, c0, min(step, c - c0), int(normalize_map),
-            int(normalize_text), stream)
-        _raise_on(rc, "score_features")
+            int(normalize_text), stream), "score_features")
         score_features.launches += 1
     return out
 
@@ -159,11 +132,11 @@ def score_argmax(map_feats: torch.Tensor, text_feats: torch.Tensor,
         best = torch.empty((n,), dtype=torch.float32,
                            device=map_feats.device)
     for c0 in range(0, c, step):
-        rc = _lib().avl_score_argmax(
+        build.check(build.load(_LIB).avl_score_argmax(
             map_feats.data_ptr(), text_feats.data_ptr(), labels.data_ptr(),
             None if best is None else best.data_ptr(), n, d, c0,
-            min(step, c - c0), int(normalize_text), int(c0 == 0), stream)
-        _raise_on(rc, "score_argmax")
+            min(step, c - c0), int(normalize_text), int(c0 == 0), stream),
+            "score_argmax")
         score_argmax.launches += 1
     return labels
 

@@ -15,34 +15,12 @@ counts the kernel path's calls (one a Sinkhorn, however many iterations).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from avlmaps_torch.kernels import build
+from avlmaps_torch.kernels.build import require
 
 NEG = -1e9  # masked log-mass / attention logit: exp(NEG) == 0.0 in f32
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "avl_sinkhorn": [_P] * 10 + [_I] * 6 + [_P],
-}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("sinkhorn")
-    if not getattr(lib, "_avl_bound", False):
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib._avl_bound = True
-    return lib
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
 
 
 def _marginals(valid0: torch.Tensor, valid1: torch.Tensor,
@@ -97,19 +75,19 @@ def sinkhorn(scores: torch.Tensor, alpha, valid0: torch.Tensor,
     """(B, M, N) scores, the dustbin score ``alpha`` (a number or a
     one-element tensor), (B, M) and (B, N) bool validity masks ->
     (B, M+1, N+1) f32 log assignment after ``iters`` iterations."""
-    _require(scores.dim() == 3, f"sinkhorn: need (B, M, N) scores, got "
-             f"{tuple(scores.shape)}")
+    require(scores.dim() == 3, "sinkhorn: need (B, M, N) scores, got {}",
+            tuple(scores.shape))
     b, m, n = scores.shape
-    _require(tuple(valid0.shape) == (b, m) and tuple(valid1.shape) == (b, n),
-             f"sinkhorn: masks {tuple(valid0.shape)}, {tuple(valid1.shape)} "
-             f"do not fit scores {tuple(scores.shape)}")
-    _require(iters >= 0, f"sinkhorn: iters must be >= 0, got {iters}")
+    require(tuple(valid0.shape) == (b, m) and tuple(valid1.shape) == (b, n),
+            "sinkhorn: masks {}, {} do not fit scores {}",
+            tuple(valid0.shape), tuple(valid1.shape), tuple(scores.shape))
+    require(iters >= 0, "sinkhorn: iters must be >= 0, got {}", iters)
     if scores.device.type == "cpu":
         return sinkhorn_ref(scores, alpha, valid0, valid1, iters)
-    _require(scores.is_cuda, f"sinkhorn: unsupported device {scores.device}")
-    _require(b < 65536, f"sinkhorn: at most 65535 pairs a call, got {b}")
-    _require(max(m, n) < 1 << 20, f"sinkhorn: at most 2^20 - 1 keypoints "
-             f"a side, got {m} x {n}")
+    require(scores.is_cuda, "sinkhorn: unsupported device {}", scores.device)
+    require(b < 65536, "sinkhorn: at most 65535 pairs a call, got {}", b)
+    require(max(m, n) < 1 << 20, "sinkhorn: at most 2^20 - 1 keypoints a "
+            "side, got {} x {}", m, n)
     dev = scores.device
     f32 = dict(dtype=torch.float32, device=dev)
     z = torch.empty((b, m + 1, n + 1), **f32)
@@ -124,14 +102,11 @@ def sinkhorn(scores: torch.Tensor, alpha, valid0: torch.Tensor,
     u = torch.zeros((b, p0), **f32)
     v = torch.zeros((b, p1), **f32)
     v[:, :n + 1] = v0
-    rc = _lib().avl_sinkhorn(
+    build.check(build.load("sinkhorn").avl_sinkhorn(
         scores.data_ptr(), a.data_ptr(), log_mu.data_ptr(),
         log_nu.data_ptr(), norm.data_ptr(), u.data_ptr(), v.data_ptr(),
         c.data_ptr(), ct.data_ptr(), z.data_ptr(), b, m, n, p0, p1, iters,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"sinkhorn: CUDA launch failed with cudaError "
-                           f"{rc}")
+        torch.cuda.current_stream(dev).cuda_stream), "sinkhorn")
     sinkhorn.launches += 1
     return z
 

@@ -186,7 +186,6 @@ def fuse_points(state: VoxelFusionState, vids: torch.Tensor,
                 valid: torch.Tensor, *, gs: int, vh: int,
                 n_rows: Optional[int] = None,
                 dedup_scatter: Optional[bool] = None,
-                scatter_rle: bool = True,
                 scatter_split: bool = True) -> VoxelFusionState:
     """Fuse one batch of weighted point features into the accumulators.
 
@@ -219,8 +218,7 @@ def fuse_points(state: VoxelFusionState, vids: torch.Tensor,
     else:
         update = torch.cat([sb.w[:, None] * sb.feats.float(), sb.aux], dim=1)
         if dedup_scatter:
-            sorted_segment_scatter_add(state.accum, sb.slots, update,
-                                       rle=scatter_rle)
+            sorted_segment_scatter_add(state.accum, sb.slots, update)
         else:
             state.accum.index_add_(0, sb.slots.long(), update)
 

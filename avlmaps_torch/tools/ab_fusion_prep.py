@@ -7,8 +7,7 @@ rows valid, bf16 features (the encoder's output), D = 512, capacity 1e6.
 It times
 
 * ``fuse_points`` (``ops/voxel_fusion.py``) on each route: ``index_add_``
-  (``dedup_scatter=False``), K5 on the assembled f32 rows with
-  ``scatter_rle`` on and off (one kernel either way), and K4
+  (``dedup_scatter=False``), K5 on the assembled f32 rows, and K4
   (``scatter_split``);
 * the chain's stages alone: the slot gather, the stable argsort of a
   composite key, the payload gather, and the gather with the assembly of
@@ -40,10 +39,7 @@ from avlmaps_torch.tools.profile_step import timed
 D = 512
 ROUTES = {  # name -> fuse_points options
     "index_add_": dict(dedup_scatter=False),
-    "K5 rle": dict(dedup_scatter=True, scatter_split=False,
-                   scatter_rle=True),
-    "K5 no rle": dict(dedup_scatter=True, scatter_split=False,
-                      scatter_rle=False),
+    "K5": dict(dedup_scatter=True, scatter_split=False),
     "K4 split": dict(dedup_scatter=True, scatter_split=True),
 }
 ATOL, RTOL = 1e-4, 1e-5
@@ -107,7 +103,7 @@ def run(device="cuda", reps: int = 6, rows: Optional[int] = None,
             raise AssertionError(
                 f"fuse_points route {name}: accumulator {held[name]:.3e} "
                 f"from index_add_'s, outside {ATOL:g} + {RTOL:g} x |x|")
-    if not torch.equal(accums["K4 split"], accums["K5 rle"]):
+    if not torch.equal(accums["K4 split"], accums["K5"]):
         raise AssertionError("fuse_points: K4's accumulator is not K5's "
                              "bit for bit")
     del accums, want

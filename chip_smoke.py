@@ -3,6 +3,14 @@
 
     python3 chip_smoke.py
 
+It checks on the card what the CPU tests cannot: each kernel against its
+plain version, the launch counts of every path, the position gate, and
+the multi-floor, sharded, sound, robot and tools paths on CUDA.  It times
+each kernel (one row each, ``kernel_row``) and the paths no benchmark
+cell measures; the rates of the paths a cell measures (the builds, the
+object query, the area map, the image query) come from ``python3
+portbench/run.py``, which times them in pairs with their spreads.
+
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and builds every kernel of ``avlmaps_torch/csrc`` (one
    ``nvcc`` per source, all at once) into ``avlmaps_torch/_build``; prints
@@ -18,60 +26,60 @@
    accumulator), and K7/K8 at the serving query's shape (N = 1e6 voxels x
    512 f32, C = 22 categories, again at C = 41, and the tie cases), each
    against its plain PyTorch version on the same inputs, with its
-   tolerance; times the kernel, the plain version and one PyTorch library
-   call for the same function (a yardstick the port never calls) with
-   CUDA events, and the wgmma kernels' device time with the profiler.
-   Then CLIP's preprocess kernel (``clip_resample``) at the area map's
-   batch, 64 seeded 720x1080 frames to 224: bit-equal to its plain
-   version on the card and to PIL (``preprocess_images``, its yardstick)
-   on the host; the kernel, plain and PIL times, the encoder's path from
-   host frames (copy into pinned staging, upload, kernel) and the upload
-   alone, and its bytes bound from the input span the crop's taps read.
-   Then SuperGlue's Sinkhorn kernel (``sinkhorn``) at the image query's
-   shape, 4096 x 4096 keypoints and 100 iterations, all valid and with
-   padded columns: Z within 1e-4 of its plain version (the torch loop) on
-   the card and the same match decision; the kernel and plain times
-   beside its bytes bound (4.03 ms).  Its ``launches`` are slice 8's,
-   one for each of SuperGlue's Sinkhorns on the card there, else slice 8
-   fails.
+   tolerance.  ``kernel_row`` times the kernel with CUDA events and its
+   device time with the profiler, the plain version and one PyTorch
+   library call for the same function (a yardstick the port never calls),
+   and sets the bound and what bounds it (operations or bytes).  Then
+   CLIP's preprocess kernel (``clip_resample``) at the area map's batch,
+   64 seeded 720x1080 frames to 224: bit-equal to its plain version on
+   the card and to PIL (``preprocess_images``, its yardstick) on the host;
+   its row adds PIL's time, the encoder's path from host frames (copy
+   into pinned staging, upload, kernel) and the upload alone, and its
+   bytes bound is the input span the crop's taps read.  Then SuperGlue's
+   Sinkhorn kernel (``sinkhorn``) at the image query's shape, 4096 x 4096
+   keypoints and 100 iterations, all valid and with padded columns: Z
+   within 1e-4 of its plain version (the torch loop) on the card and the
+   same match decision; its bytes bound is one read of the coupling a
+   half-update.  Its ``launches`` are slice 8's, one for each of
+   SuperGlue's Sinkhorns on the card there, else slice 8 fails.
 3. Slice 1, map construction: writes a synthetic 720x1080 RGB-D scene,
    builds it with ``VLMapBuilder`` and the ViT-L/16 LSeg in bf16 (seeded
    random weights) at gs=1000, cs=0.05, vh=30, capacity 1e6, D=512, batch
    4, canvas transport, sliding-window eval; checks the launch counts
    (K1-K3 24 per forward, K4 one per step), the map, the HDF5 reload, and
-   one crop's features against the CPU path of the same network; then K4
-   on the warm-up build's real sorted step against its plain version and
-   bitwise against K5, with device times and the run-length profile.
+   one crop's features against the CPU path of the same network; a
+   profiled build of another scene gives each port kernel's ms a launch
+   on the path (the table's ``path``); then K4 on the warm-up build's
+   real sorted step against its plain version and bitwise against K5,
+   with its row and the run-length profile.
 4. Slice 2, the object query: the full-width ViT-B/32 CLIP text tower
    (seeded weights) on the card against the port's CPU path; the serving
    query (``make_text_object_query``) at production scale (1e6 voxels x
    512 f32 on a 1000x1000x30 grid, 21 resident categories + the query,
-   k = 64): queries/s over 8 words x 3 epochs with async fetches, the
-   synchronous latency, goal / top-k / u8 parity with the host heat, a
-   run under ``torch.cuda.set_sync_debug_mode("error")`` up to the fetch,
-   K7 once per query, and the device ms per stage from ``torch.profiler``;
-   then the object query (``AVLMap.index_object``, every delivery,
-   ``init_categories`` with K8 once, ``make_serving_query``, ``get_pos``)
-   on the map slice 1 built.  Counts are zeroed before each slice's path
+   k = 64), each of 8 words once to warm it: goal / top-k / u8 parity
+   with the host heat, a run under ``torch.cuda.set_sync_debug_mode(
+   "error")`` up to the fetch and K7 once per query; then the object
+   query (``AVLMap.index_object``, every delivery, ``init_categories``
+   with K8 once, ``make_serving_query``, ``get_pos``) on the map slice 1
+   built.  Counts are zeroed before each slice's path
    and read after it.
-5. Slice 3, the throughput build and the other routes: K6
-   (``gelu_matmul``) and K2 on (B, H, T, D) tensors (``mha_bhtd``, the
-   flash/splash row) against their plain versions at the ViT-L shapes; a
-   64-frame 720x1080 scene packed with ``pack_scene`` (canvas 347x520)
-   and built with ``sampling="device"``, whole-canvas eval, batch 16 (K5
-   once a step, K4 never; frames/s, host and device ms per step, idle
-   share; a warm step under ``set_sync_debug_mode("error")``); the same
-   frames through the canvas transport (host sampling, whole, batch 16);
-   the frame transport (sliding, batch 4, 2 steps) against the canvas
-   transport on the same frames and draws; K5 against its plain version
-   bitwise against K4 and bitwise against itself with allocations of the
-   batch's size made between its wrapper and its launch (the kernel reads
-   only its arguments), on a real 124,416-row sorted batch of the build,
-   with the batch's run-length profile; K1, K3 and K2 at the
-   throughput build's shapes, and K1 at N = 4096 (the unfused fc);
-   8-crop ViT-L taps with ``MLP_FUSE=False`` and ``attn_impl="flash"``
-   against the default route; a medium f32 LSeg on the card against the
-   CPU.
+5. Slice 3, the throughput build and the other routes: K6 (``gelu_matmul``)
+   and K2 on (B, H, T, D) tensors (``mha_bhtd``, the flash/splash row)
+   against their plain versions at the ViT-L shapes; a 64-frame 720x1080
+   scene packed with ``pack_scene`` (canvas 347x520) and built with
+   ``sampling="device"``, whole-canvas eval, batch 16 (K5 once a step, K4
+   never, K5's ``path`` from a profiled rebuild; a warm step under
+   ``set_sync_debug_mode("error")``); the same frames through the canvas
+   transport (host sampling, whole, batch 16; the same launches); the frame
+   transport (sliding, batch 4, 2 steps) against the canvas transport on
+   the same frames and draws; K5 against its plain version bitwise against
+   K4 and bitwise against itself with allocations of the batch's size made
+   between its wrapper and its launch (the kernel reads only its
+   arguments), on a real 124,416-row sorted batch of the build, with the
+   batch's run-length profile; K1, K3 and K2 at the throughput build's
+   shapes, and K1 at N = 4096 (the unfused fc); 8-crop ViT-L taps with
+   ``MLP_FUSE=False`` and ``attn_impl="flash"`` against the default route;
+   a medium f32 LSeg on the card against the CPU.
 6. Slice 7, the area and sound queries, on the slice-1 scene: writes its
    ``audio_video/`` (20 sequences of 12 s at 44.1 kHz, 3 noisy tones of
    1.5-2.6 s between exact silences each, 25 fps habitat pose walks);
@@ -93,15 +101,15 @@
    against the host argmax.  K7 and K8 counts
    are zeroed before the phase's path and must read >= 1 after it.
    Prints the events found, the audio tower's clips/s at batch 10 and
-   its device ms a batch, the area map's frames/s, each 2D query's
+   its device ms a batch, the sound map's seconds, each 2D query's
    device ms and kernel launches, and the phase's wall seconds.
 7. Slice 8, the image query and the other models, on the slice-1 scene
    (seeded weights at full width): SuperPoint on one 720x1080 frame
    against the CPU (keypoint sets shared >= 99%, scores within 1e-6 and
-   descriptors within 1e-4 at shared keypoints; ms an image); SuperGlue
-   (9 layer pairs, 100 Sinkhorn iterations) on two frames' 1024 + 1024
-   keypoints against the CPU (Z within 1e-3, decisions agreeing on >= 99%
-   of the rows; ms, device ms and launches a match); NetVLAD against the
+   descriptors within 1e-4 at shared keypoints); SuperGlue (9 layer
+   pairs, 100 Sinkhorn iterations) on two frames' 1024 + 1024 keypoints
+   against the CPU (Z within 1e-3, decisions agreeing on >= 99% of the
+   rows); NetVLAD against the
    CPU at 240x320 (cosine >= 0.9999) and the scene's 32 frames at
    720x1080 (frames/s); ``VisualMap.create_and_load_map`` with NetVLAD
    and with the CLIP ViT-B/32 image tower on 16 mosaic frames, where a
@@ -118,10 +126,10 @@
    the plain route (no port kernel) on the same weights (per-pixel cosine
    >= 0.999), and K1, K3 and K2 at its crop batches that the batch-8 rows
    do not cover (2, 4 and 12 crops: M = 1802, 3604, 10812) against their
-   plain versions, with times, bounds and library times; Wav2CLIP on 10 of the sound map's clips against the CPU
-   (cosine >= 0.9999).  Every f32 model runs with TF32 switched on
-   outside and asserted off inside its forward.  Prints whether OpenCV
-   is installed and the phase's wall seconds.
+   plain versions, each a kernel row; Wav2CLIP on 10 of the sound map's
+   clips against the CPU (cosine >= 0.9999).  Every f32 model runs with
+   TF32 switched on outside and asserted off inside its forward.  Prints
+   whether OpenCV is installed and the phase's wall seconds.
 8. Slice 9, the multi-floor build and the robot.  After slice 3, while
    the ViT-L/16 net lives: 32 720x1080 frames with global camera poses
    on two floors 3 m apart (16 a floor) built by
@@ -228,6 +236,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -267,9 +276,6 @@ MP3D = ["void", "wall", "floor", "chair", "door", "table", "picture",
         "bathtub", "counter", "fireplace", "lighting", "beam", "railing",
         "shelving", "blinds", "gym_equipment", "seating", "board_panel",
         "furniture", "appliances", "clothes", "objects"]
-STAGES = ["query.text_encode", "query.score_argmax", "query.scatter_min",
-          "query.edt_axis0", "query.edt_axis1", "query.edt_axis2",
-          "query.gather_heat", "query.delivery", "query.topk"]
 
 # the throughput build (bench.py's whole-canvas legs): batch 16, 64 frames
 THR_BATCH = 16
@@ -329,19 +335,62 @@ def device_ms(fn, iters: int = 20, per_call: int = 0) -> float:
         if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
-def bound(flops: float, nbytes: float, peak_flops: float):
-    t_ops = flops / peak_flops * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+# the TPU code each kernel replaces (a kernel-table column)
+REPLACES = {
+    "ln_matmul": "avlmaps_tpu/ops/fused_vit.py:438",
+    "mha_oneshot_2d": "avlmaps_tpu/ops/fused_vit.py:149",
+    "ln_mlp_residual": "avlmaps_tpu/ops/fused_vit.py:321",
+    "gelu_matmul": "avlmaps_tpu/ops/fused_vit.py:459",
+    "mha_bhtd": "avlmaps_tpu/models/lseg/vit.py:81",
+    "sorted_segment_scatter_add_split":
+        "avlmaps_tpu/ops/segment_scatter.py:273",
+    "sorted_segment_scatter_add": "avlmaps_tpu/ops/segment_scatter.py:358",
+    "score_features": "avlmaps_tpu/ops/similarity.py:56",
+    "score_argmax": "avlmaps_tpu/ops/similarity.py:157",
+    "clip_resample": "avlmaps_tpu/models/clip/model.py:220",
+    "sinkhorn": "none",
+}
 
 
-def _times(r) -> str:
-    def dev(key):
-        return (f" (device {r[key]:.4f} ms, profiler)" if key in r else "")
-    return (f"kernel {r['ms']:.4f} ms{dev('device_ms')}, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
-            f"{dev('library_device_ms')}, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+def kernel_row(fn, kern, plain, library, *, err, nbytes: float,
+               flops: float = 0.0, peak: float = PEAK_F32, iters: int = 10,
+               dev_iters: int = 20, plain_iters: int = 10,
+               shape: str = None, **extra) -> dict:
+    """One row of the kernel table for the wrapper ``fn``: ``kern`` (a
+    call of it) timed with CUDA events and its device time from the
+    profiler, ``plain`` (its plain version) and ``library`` (one PyTorch
+    library call of the same function, which the port never calls; None
+    for none) with CUDA events, the library's device time too; the bound
+    is the larger of ``flops`` at ``peak`` and ``nbytes`` at the HBM
+    peak.  The timing calls leave ``fn.launches`` as they found it.
+    ``extra`` keys join the row last.  Prints the row's line."""
+    name, before = fn.__name__, fn.launches
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = dict(name=name, fn=fn, route="cuda",
+               source=f"avlmaps_torch/csrc/{fn.__module__.split('.')[-1]}.cu",
+               replaces=REPLACES[name], max_abs_err=err,
+               ms=time_ms(kern, iters), device_ms=device_ms(kern, dev_iters),
+               plain_ms=time_ms(plain, plain_iters),
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=None)
+    if library is not None:
+        row.update(library_ms=time_ms(library),
+                   library_device_ms=device_ms(library))
+    if shape is not None:
+        row["shape"] = shape
+    row.update(extra)
+    fn.launches = before
+    lib = ("" if row["library_ms"] is None else
+           f", library {row['library_ms']:.4f} ms"
+           + (f" (device {row['library_device_ms']:.4f} ms)"
+              if "library_device_ms" in row else ""))
+    print(f"  {name}{'' if shape is None else ' ' + shape}: kernel "
+          f"{row['ms']:.4f} ms (device {row['device_ms']:.4f} ms, "
+          f"profiler), plain {row['plain_ms']:.4f} ms{lib}, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+          f"{100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+    return row
 
 
 def compare(name: str, got, want, atol: float, rtol: float) -> float:
@@ -381,7 +430,7 @@ def _randn(g, *shape, std=1.0, dtype=None):
         dtype or torch.bfloat16)
 
 
-def k2_case(g, nb: int, t: int):
+def k2_case(g, nb: int, t: int, shape: str = None):
     """K2 (mha_oneshot_2d) on a random (nb*t, 3W) qkv matrix against its
     plain version, timed beside SDPA; returns its kernel-table row and the
     qkv matrix."""
@@ -402,18 +451,13 @@ def k2_case(g, nb: int, t: int):
 
     err = compare(f"K2 mha_oneshot_2d ({nb}, {HEADS}, {t}, 64)", k2(), p2(),
                   K2_ATOL, BF_RTOL)
-    b_ms, b_by = bound(4 * nb * t * t * WIDTH, 2 * (m * 3 * WIDTH + m * WIDTH),
-                       PEAK_BF16)
-    return dict(name="mha_oneshot_2d", fn=fv.mha_oneshot_2d, route="cuda",
-                source="avlmaps_torch/csrc/fused_vit.cu",
-                replaces="avlmaps_tpu/ops/fused_vit.py:149",
-                max_abs_err=err, ms=time_ms(k2), device_ms=device_ms(k2),
-                plain_ms=time_ms(p2, 3), bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(lib2),
-                library_device_ms=device_ms(lib2)), qkv
+    return kernel_row(fv.mha_oneshot_2d, k2, p2, lib2, err=err,
+                      flops=4 * nb * t * t * WIDTH,
+                      nbytes=2 * (m * 3 * WIDTH + m * WIDTH), peak=PEAK_BF16,
+                      plain_iters=3, shape=shape), qkv
 
 
-def k1_case(g, m: int, n: int):
+def k1_case(g, m: int, n: int, shape: str = None):
     """K1 (ln_matmul) on M random rows at ViT-L width into N columns (3072:
     the qkv projection; 4096: the unfused route's fc) against its plain
     version, timed beside F.layer_norm + F.linear; returns its
@@ -436,19 +480,14 @@ def k1_case(g, m: int, n: int):
                             b.to(x.dtype))
     err = compare(f"K1 ln_matmul (M={m}, N={n})", k1(), p1(), BF_ATOL,
                   BF_RTOL)
-    b_ms, b_by = bound(2 * m * WIDTH * n,
-                       2 * (m * WIDTH + n * WIDTH + m * n)
-                       + 4 * (2 * WIDTH + n), PEAK_BF16)
-    return dict(name="ln_matmul", fn=fv.ln_matmul, route="cuda",
-                source="avlmaps_torch/csrc/fused_vit.cu",
-                replaces="avlmaps_tpu/ops/fused_vit.py:438",
-                max_abs_err=err, ms=time_ms(k1), device_ms=device_ms(k1),
-                plain_ms=time_ms(p1, 3), bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(lib1),
-                library_device_ms=device_ms(lib1))
+    return kernel_row(fv.ln_matmul, k1, p1, lib1, err=err,
+                      flops=2 * m * WIDTH * n,
+                      nbytes=2 * (m * WIDTH + n * WIDTH + m * n)
+                      + 4 * (2 * WIDTH + n), peak=PEAK_BF16, plain_iters=3,
+                      shape=shape)
 
 
-def k3_case(g, m: int):
+def k3_case(g, m: int, shape: str = None):
     """K3 (ln_mlp_residual) on M random rows at ViT-L width against its
     plain version, timed beside LN + two F.linear + GELU; returns its
     kernel-table row."""
@@ -476,16 +515,11 @@ def k3_case(g, m: int):
 
     err = compare(f"K3 ln_mlp_residual (M={m})", k3(), p3(), BF_ATOL,
                   BF_RTOL)
-    b_ms, b_by = bound(4 * m * WIDTH * MLP,
-                       2 * (2 * m * WIDTH + 2 * WIDTH * MLP)
-                       + 4 * (3 * WIDTH + MLP), PEAK_BF16)
-    return dict(name="ln_mlp_residual", fn=fv.ln_mlp_residual, route="cuda",
-                source="avlmaps_torch/csrc/fused_vit.cu",
-                replaces="avlmaps_tpu/ops/fused_vit.py:321",
-                max_abs_err=err, ms=time_ms(k3), device_ms=device_ms(k3),
-                plain_ms=time_ms(p3, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib3),
-                library_device_ms=device_ms(lib3))
+    return kernel_row(fv.ln_mlp_residual, k3, p3, lib3, err=err,
+                      flops=4 * m * WIDTH * MLP,
+                      nbytes=2 * (2 * m * WIDTH + 2 * WIDTH * MLP)
+                      + 4 * (3 * WIDTH + MLP), peak=PEAK_BF16,
+                      plain_iters=3, shape=shape)
 
 
 def kernel_checks():
@@ -551,34 +585,48 @@ def kernel_checks():
             ss.sorted_segment_scatter_add_split_ref(
                 base.clone(), slots, feats.to(torch.bfloat16), w, aux)[:-1],
             1e-4, 1e-5)
-    del got, want
-    acc = base
-    update = torch.cat([w[:, None] * feats, aux], dim=1)
-    # the bound counts what this data needs: the rows bound for real slots
-    # (the trash slot's contents are unspecified) and one read-modify-write
-    # of each distinct real slot
-    real = slots[slots != CAPACITY]
-    n_rows, n_unique = int(real.numel()), int(torch.unique(real).numel())
-    k4 = lambda: ss.sorted_segment_scatter_add_split(  # noqa: E731
-        acc, slots, feats, w, aux)
-    p4 = lambda: ss.sorted_segment_scatter_add_split_ref(acc, slots, feats,  # noqa: E731
-                                                         w, aux)
-    lib4 = lambda: acc.index_add_(0, slots.long(), update)  # noqa: E731
-    b_ms, b_by = bound(2 * n_rows * ACCUM_W,
-                       n_rows * (4 * FEAT + 4 + 4 * (ACCUM_W - FEAT) + 4)
-                       + n_unique * ACCUM_W * 4 * 2, PEAK_F32)
-    rows.append(dict(name="sorted_segment_scatter_add_split",
-                     fn=ss.sorted_segment_scatter_add_split, route="cuda",
-                     source="avlmaps_torch/csrc/segment_scatter.cu",
-                     replaces="avlmaps_tpu/ops/segment_scatter.py:273",
-                     max_abs_err=err, ms=time_ms(k4), device_ms=device_ms(k4),
-                     plain_ms=time_ms(p4), bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lib4),
-                     library_device_ms=device_ms(lib4),
-                     runs=run_lengths(slots)))
-    for r in rows:
-        print(f"  {r['name']}: {_times(r)}")
+    del got, want, base
+    rows.append(scatter_row(ss.sorted_segment_scatter_add_split,
+                            SimpleNamespace(slots=slots, feats=feats, w=w,
+                                            aux=aux), CAPACITY, err))
     return rows
+
+
+def scatter_row(fn, sb, capacity: int, err, **extra) -> dict:
+    """The kernel row of K4 or K5 (``fn``) on the sorted batch ``sb``
+    (``slots``, ``feats``, ``w``, ``aux``) into a (capacity + 1, 640)
+    accumulator, ``index_add_`` of the assembled rows its library.  The
+    bound counts what the batch needs: the rows bound for real slots (the
+    trash slot's contents are unspecified) and one read-modify-write of
+    each distinct real slot."""
+    import torch
+
+    from avlmaps_torch.ops import segment_scatter as ss
+
+    acc = torch.zeros(capacity + 1, ACCUM_W, device="cuda")
+    update = torch.cat([sb.w[:, None] * sb.feats.float(), sb.aux], dim=1)
+    idx = sb.slots.long()
+    real = sb.slots[sb.slots != capacity]
+    n_real, n_unique = int(real.numel()), int(torch.unique(real).numel())
+    if fn is ss.sorted_segment_scatter_add_split:
+        flops = 2 * n_real * ACCUM_W
+        nbytes = n_real * (sb.feats.element_size() * FEAT + 4
+                           + 4 * (ACCUM_W - FEAT) + 4)
+        kern = lambda: fn(acc, sb.slots, sb.feats, sb.w, sb.aux)  # noqa: E731
+        plain = lambda: ss.sorted_segment_scatter_add_split_ref(  # noqa: E731
+            acc, sb.slots, sb.feats, sb.w, sb.aux)
+    else:
+        flops, nbytes = n_real * ACCUM_W, n_real * (4 * ACCUM_W + 4)
+        kern = lambda: fn(acc, sb.slots, update)  # noqa: E731
+        plain = lambda: ss.sorted_segment_scatter_add_ref(  # noqa: E731
+            acc, sb.slots, update)
+    row = kernel_row(fn, kern, plain, lambda: acc.index_add_(0, idx, update),
+                     err=err, flops=flops,
+                     nbytes=nbytes + n_unique * ACCUM_W * 8,
+                     runs=run_lengths(sb.slots, capacity), **extra)
+    del acc, update, idx
+    torch.cuda.empty_cache()
+    return row
 
 
 def _uncounted(fn, *args):
@@ -651,25 +699,14 @@ def score_kernel_checks():
         k7 = lambda: sim.score_argmax(x, t, True, True)  # noqa: E731
         p7 = lambda: sim.score_argmax_ref(x, t, True, True)  # noqa: E731
         lib7 = lambda: torch.matmul(x, th.T).argmax(1)  # noqa: E731
-        b8 = bound(2 * N_VOX * FEAT * c + 2 * N_VOX * FEAT,
-                   4 * (N_VOX * FEAT + c * FEAT + N_VOX * c), PEAK_F32)
-        b7 = bound(2 * N_VOX * FEAT * c,
-                   4 * (N_VOX * FEAT + c * FEAT + N_VOX), PEAK_F32)
-        got = [dict(name="score_features", fn=sim.score_features,
-                    replaces="avlmaps_tpu/ops/similarity.py:56",
-                    max_abs_err=err8, ms=time_ms(k8), device_ms=device_ms(k8),
-                    plain_ms=time_ms(p8), bound_ms=b8[0], bound_by=b8[1],
-                    library_ms=time_ms(lib8),
-                    library_device_ms=device_ms(lib8)),
-               dict(name="score_argmax", fn=sim.score_argmax,
-                    replaces="avlmaps_tpu/ops/similarity.py:157",
-                    max_abs_err=bad, ms=time_ms(k7), device_ms=device_ms(k7),
-                    plain_ms=time_ms(p7), bound_ms=b7[0], bound_by=b7[1],
-                    library_ms=time_ms(lib7),
-                    library_device_ms=device_ms(lib7))]
-        for r in got:
-            r.update(route="cuda", source="avlmaps_torch/csrc/similarity.cu")
-            print(f"  {r['name']} C={c}: {_times(r)}")
+        got = [kernel_row(sim.score_features, k8, p8, lib8, err=err8,
+                          flops=2 * N_VOX * FEAT * c + 2 * N_VOX * FEAT,
+                          nbytes=4 * (N_VOX * FEAT + c * FEAT + N_VOX * c),
+                          shape=f"C={c}"),
+               kernel_row(sim.score_argmax, k7, p7, lib7, err=bad,
+                          flops=2 * N_VOX * FEAT * c,
+                          nbytes=4 * (N_VOX * FEAT + c * FEAT + N_VOX),
+                          shape=f"C={c}")]
         if c == 22:  # the serving shape goes into the kernel table
             rows += got
 
@@ -763,22 +800,14 @@ def clip_resample_check():
     rows = int(t.vb[-1].sum() - t.vb[0, 0])
     cols = int(t.hb[-1].sum() - t.hb[0, 0])
     macs = b * 3 * size * (rows * t.hk.shape[1] + size * t.vk.shape[1])
-    b_ms, b_by = bound(2 * macs, b * rows * cols * 3 + b * size * size * 12,
-                       PEAK_F32)
     print(f"  the crop reads input rows {rows} x columns {cols} of "
-          f"{h} x {w}")
-    row = dict(name="clip_resample", fn=cr.clip_resample, route="cuda",
-               source="avlmaps_torch/csrc/clip_resample.cu",
-               replaces="avlmaps_tpu/models/clip/model.py:220",
-               max_abs_err=float(np.abs(got - pil).max()), ms=time_ms(k, 20),
-               device_ms=device_ms(k, 5), plain_ms=time_ms(p, 3),
-               bound_ms=b_ms, bound_by=b_by, library_ms=pil_ms,
-               staged_ms=staged_ms,
-               upload_ms=time_ms(lambda: pinned.to("cuda",
-                                                   non_blocking=True), 5))
-    print(f"  clip_resample: {_times(row)} (library: PIL on the host); "
-          f"host frames to the card's batch {staged_ms:.4f} ms, the pinned "
-          f"upload {row['upload_ms']:.4f} ms")
+          f"{h} x {w}; the library is PIL on the host")
+    row = kernel_row(
+        cr.clip_resample, k, p, None, err=float(np.abs(got - pil).max()),
+        flops=2 * macs, nbytes=b * rows * cols * 3 + b * size * size * 12,
+        iters=20, dev_iters=5, plain_iters=3, library_ms=pil_ms,
+        staged_ms=staged_ms,
+        upload_ms=time_ms(lambda: pinned.to("cuda", non_blocking=True), 5))
     del dev, pinned, pre
     torch.cuda.empty_cache()
     return row
@@ -831,18 +860,10 @@ def sinkhorn_check():
                                iters)
     plain = lambda: sk.sinkhorn_ref(scores, alpha, valid0,  # noqa: E731
                                     valid0, iters)
-    nbytes = (2 * iters + 1) * 4 * (k + 1) ** 2
-    row = dict(name="sinkhorn", fn=sk.sinkhorn, route="cuda",
-               source="avlmaps_torch/csrc/sinkhorn.cu", replaces="none",
-               max_abs_err=max(gaps.values()), ms=time_ms(kern, 10),
-               device_ms=device_ms(kern, 3),
-               plain_ms=time_ms(plain, 3), bound_ms=nbytes / PEAK_BYTES * 1e3,
-               bound_by="bytes", library_ms=None)
-    print(f"  sinkhorn (1, {k}, {k}), {iters} iterations: kernel "
-          f"{row['ms']:.4f} ms (device {row['device_ms']:.4f} ms, "
-          f"profiler), plain {row['plain_ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms (bytes: {nbytes / 1e9:.2f} GB), "
-          f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
+    row = kernel_row(sk.sinkhorn, kern, plain, None,
+                     err=max(gaps.values()),
+                     nbytes=(2 * iters + 1) * 4 * (k + 1) ** 2,
+                     dev_iters=3, plain_iters=3)
     del scores, z, zp
     torch.cuda.empty_cache()
     return row
@@ -973,12 +994,12 @@ def path_ms(kernel: str) -> float:
     return found[0]
 
 
-def profile_build(b, steps: int, attribute: bool = False) -> float:
-    """Device time by kernel over a short build (torch.profiler).  Returns
-    the device ms per step: every kernel and copy of the build except the
-    export's device->host copies, over the steps (the rule of
-    ``avlmaps_torch.tools.trace_step``).  With ``attribute``, also prints
-    the torch ops by the device time of the kernels they launch."""
+def profile_build(b, steps: int) -> float:
+    """Profiles one build (torch.profiler): each port kernel's device ms
+    a launch goes into ``PATH_MS`` (the kernel table's ``path`` column);
+    returns the device ms per step, every kernel and copy of the build
+    but the export's device->host copies (the rule of
+    ``avlmaps_torch.tools.trace_step``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -988,58 +1009,15 @@ def profile_build(b, steps: int, attribute: bool = False) -> float:
                                             ProfilerActivity.CUDA]) as prof:
         b.create_mobile_base_map(save_every=0, progress=False)
         torch.cuda.synchronize()
-    kernels = tsp.device_averages(prof)
-    step_ms = tsp.build_device_ms(prof, steps)
-    print(f"  profiled {steps}-step build: device busy {step_ms:.3f} ms per "
-          f"step (export copies excluded), {len(kernels)} kernel names; "
-          "top by device time:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
-              f"{e.count:6d}x  {e.key[:90]}")
     PATH_MS.clear()
-    for e in kernels:
+    for e in tsp.device_averages(prof):
         name = next((k for k in tsp.PORT_KERNELS if k in e.key), None)
         if name is not None:
             print(f"    port kernel {name}: {e.count}x, "
                   f"{e.self_device_time_total / 1e3 / e.count:.4f} ms each "
                   f"({e.key[:60]})")
             PATH_MS[e.key] = e.self_device_time_total / 1e3 / e.count
-    if attribute:
-        tsp.attribute_ops(prof, steps)
-    return step_ms
-
-
-def time_producer(scene: Path, mc, n_frames: int) -> float:
-    """The host producer alone, ms per batch: PNG and npy decode, canvas
-    resize, pixel sampling and the pinned copy to the card, with no step
-    consuming the batches."""
-    from avlmaps_torch.map.vlmap_builder import sample_pixels
-    from avlmaps_torch.models.lseg.window import plan_windows
-    from avlmaps_torch.pipeline.loader import PrefetchLoader
-    from avlmaps_torch.pipeline.transport import make_canvas_transform
-
-    h, w = 720, 1080
-    height, width, _, _, _ = plan_windows(h, w)
-    rng = np.random.default_rng(0)
-    n_pts = mc.point_budget(h, w)
-    transform = make_canvas_transform(
-        lambda nb: sample_pixels(rng, h, w, mc.depth_sample_rate, n_pts, nb),
-        (height, width))
-    return producer_ms(PrefetchLoader(
-        sorted((scene / "rgb").glob("*.png")),
-        sorted((scene / "depth").glob("*.npy")),
-        [np.eye(4)] * n_frames, batch_size=BATCH, normalize=False,
-        transform=transform, device="cuda"))
-
-
-def producer_ms(loader) -> float:
-    """A loader's ms per batch with no step consuming the batches."""
-    import torch
-
-    t0 = time.perf_counter()
-    n_batches = sum(1 for _ in loader)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / n_batches
+    return tsp.build_device_ms(prof, steps)
 
 
 def slice_run(rows, tmp: Path):
@@ -1105,33 +1083,21 @@ def slice_run(rows, tmp: Path):
     for r in rows:
         r["fn"].launches = 0
     b = builder(scene)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     m = b.create_mobile_base_map(save_every=0, progress=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     for r in rows:
         r["launches"] = r["fn"].launches
     steps = math.ceil(N_FRAMES / BATCH)
     reloaded = SparseVoxelMap.load(b.map_save_path)
-    producer_ms = time_producer(scene, mc, N_FRAMES)
-    prof_scene = write_scene(tmp / "prof", N_PROF * BATCH, seed=2)
-    device_ms = profile_build(builder(prof_scene), N_PROF)
+    profile_build(builder(write_scene(tmp / "prof", N_PROF * BATCH, seed=2)),
+                  N_PROF)
     rows[3]["path"] = path_ms("segment_scatter_kernel")
 
     stats = b.build_stats
     print(f"  frames={stats['frames']} voxels={stats['voxels']} "
-          f"points_dropped={stats['points_dropped']} steps={steps}")
-    host_ms = 1e3 * BATCH / stats["fps"]
-    print(f"  steady-state fps={stats['fps']:.2f} (builder RateMeter) "
-          f"ms/step={host_ms:.1f}; whole build {wall:.2f} s incl. export "
-          f"and HDF5 save; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"  per step: host loop {host_ms:.1f} ms (measured build), device "
-          f"busy {device_ms:.1f} ms (profiled build of another scene); idle "
-          f"share {1 - device_ms / host_ms:.3f} pairs the two; "
-          f"host producer alone {producer_ms:.1f} ms per batch of {BATCH}")
+          f"points_dropped={stats['points_dropped']} steps={steps}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB")
     launches = {r["name"]: r["launches"] for r in rows}
     print(f"  launches: {launches}")
     want = {"ln_matmul": LAYERS * steps, "mha_oneshot_2d": LAYERS * steps,
@@ -1196,16 +1162,10 @@ def vit_kernel_checks():
     p6 = lambda: fv.gelu_matmul_ref(x, w, b)  # noqa: E731
     lib6 = lambda: F.linear(F.gelu(x), w, b.to(x.dtype))  # noqa: E731
     err = compare("K6 gelu_matmul", k6(), p6(), BF_ATOL, BF_RTOL)
-    b_ms, b_by = bound(2 * m * MLP * WIDTH,
-                       2 * (m * MLP + WIDTH * MLP + m * WIDTH) + 4 * WIDTH,
-                       PEAK_BF16)
-    rows.append(dict(name="gelu_matmul", fn=fv.gelu_matmul, route="cuda",
-                     source="avlmaps_torch/csrc/fused_vit.cu",
-                     replaces="avlmaps_tpu/ops/fused_vit.py:459",
-                     max_abs_err=err, ms=time_ms(k6), device_ms=device_ms(k6),
-                     plain_ms=time_ms(p6, 3),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib6),
-                     library_device_ms=device_ms(lib6)))
+    rows.append(kernel_row(
+        fv.gelu_matmul, k6, p6, lib6, err=err, flops=2 * m * MLP * WIDTH,
+        nbytes=2 * (m * MLP + WIDTH * MLP + m * WIDTH) + 4 * WIDTH,
+        peak=PEAK_BF16, plain_iters=3))
     del x
 
     # K2 on (B, H, T, D): the flash/splash layout, 8 crops x 16 heads
@@ -1222,17 +1182,9 @@ def vit_kernel_checks():
             fv.mha_bhtd(qkv[0], qkv[1], qkv[2], scale=scale, t_real=832),
             fv.mha_bhtd_ref(qkv[0], qkv[1], qkv[2], scale=scale,
                             t_real=832), K2_ATOL, BF_RTOL)
-    b_ms, b_by = bound(4 * nb * HEADS * T * T * hd,
-                       2 * 4 * nb * HEADS * T * hd, PEAK_BF16)
-    rows.append(dict(name="mha_bhtd", fn=fv.mha_bhtd, route="cuda",
-                     source="avlmaps_torch/csrc/fused_vit.cu",
-                     replaces="avlmaps_tpu/models/lseg/vit.py:81",
-                     max_abs_err=err, ms=time_ms(k2), device_ms=device_ms(k2),
-                     plain_ms=time_ms(p2, 3), bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lib2),
-                     library_device_ms=device_ms(lib2)))
-    for r in rows:
-        print(f"  {r['name']}: {_times(r)}")
+    rows.append(kernel_row(
+        fv.mha_bhtd, k2, p2, lib2, err=err, flops=4 * nb * HEADS * T * T * hd,
+        nbytes=2 * 4 * nb * HEADS * T * hd, peak=PEAK_BF16, plain_iters=3))
     return rows
 
 
@@ -1274,48 +1226,20 @@ def _counts(rows):
     return {r["name"]: r["fn"].launches for r in rows}
 
 
-def _measured_build(name, make, rows, steps, producer_loader,
-                    attribute=False):
-    """One timed build (after a warm one), its launch counts, a profile of
-    a second build and the producer alone; prints the step numbers."""
-    import torch
-
+def _checked_build(name, make, rows):
+    """A build's launch counts and stats; raises unless it fused every
+    frame into finite features."""
     _zero(rows)
     b = make()
-    # the steps end where the final save starts: the builder's loop runs
-    # ahead of the card, so its own rate meter times the enqueue
-    save, loop_end = b._save, []
-
-    def timed_save(*args):
-        torch.cuda.synchronize()
-        loop_end.append(time.perf_counter())
-        return save(*args)
-
-    b._save = timed_save
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     m = b.create_mobile_base_map(save_every=0, progress=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     counts = _counts(rows)
     stats = b.build_stats
-    device_ms = profile_build(make(), steps, attribute)
-    producer = producer_ms(producer_loader())
-    step_ms = (loop_end[-1] - t0) * 1e3 / steps
-    enqueue_ms = 1e3 * THR_BATCH / stats["fps"]
-    print(f"  {name}: frames={stats['frames']} voxels={stats['voxels']} "
-          f"steps={steps}; {1e3 * THR_BATCH / step_ms:.2f} frames/s, "
-          f"{step_ms:.1f} ms per step (host clock to the last step's end, "
-          f"set-up included); device busy {device_ms:.1f} ms per step "
-          f"(profiled rebuild), idle share {1 - device_ms / step_ms:.3f}; "
-          f"the loop enqueues a step in {enqueue_ms:.1f} ms (RateMeter); "
-          f"producer alone {producer:.1f} ms per batch of {THR_BATCH}; "
-          f"whole build {wall:.2f} s with export and save")
-    print(f"  {name} launches: {counts}")
+    print(f"  {name}: frames={stats['frames']} voxels={stats['voxels']}; "
+          f"launches {counts}")
     if stats["frames"] != THR_FRAMES or m.grid_feat.shape[0] == 0 \
             or not np.isfinite(m.grid_feat).all():
         raise AssertionError(f"{name}: build stats {stats}")
-    return m, counts
+    return counts
 
 
 def throughput_run(net, tmp: Path, k5_row, path_rows):
@@ -1400,15 +1324,13 @@ def throughput_run(net, tmp: Path, k5_row, path_rows):
 
     steps = THR_FRAMES // THR_BATCH
     rows = path_rows + [k5_row]
-    pk = PackedScene(scene / "scene.avpack")
-    poses = [np.eye(4)] * THR_FRAMES
-    _, counts = _measured_build(
-        "device-sampled packed build (whole, batch 16)",
-        lambda: _builder(net, mc, tfs, scene, THR_BATCH, sampling="device"),
-        rows, steps,
-        lambda: PackedLoader(pk, poses, batch_size=THR_BATCH,
-                             raw_canvas=True, device="cuda"),
-        attribute=True)
+
+    def device_sampled():
+        return _builder(net, mc, tfs, scene, THR_BATCH, sampling="device")
+
+    counts = _checked_build("device-sampled packed build (whole, batch 16)",
+                            device_sampled, rows)
+    profile_build(device_sampled(), steps)
     k5_row["path"] = path_ms("segment_scatter_kernel")
     k5_row["launches"] = counts["sorted_segment_scatter_add"]
     want = {"ln_matmul": LAYERS * steps, "mha_oneshot_2d": LAYERS * steps,
@@ -1418,17 +1340,9 @@ def throughput_run(net, tmp: Path, k5_row, path_rows):
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
 
-    rng = np.random.default_rng(0)
-    n_pts = mc.point_budget(720, 1080)
-    _, counts = _measured_build(
+    counts = _checked_build(
         "canvas transport on the same frames (host sampling, whole, "
-        "batch 16)",
-        lambda: _builder(net, mc, tfs, scene, THR_BATCH),
-        rows, steps,
-        lambda: PackedLoader(pk, poses, batch_size=THR_BATCH,
-                             sampler=lambda nb: vb.sample_pixels(
-                                 rng, 720, 1080, mc.depth_sample_rate,
-                                 n_pts, nb), device="cuda"))
+        "batch 16)", lambda: _builder(net, mc, tfs, scene, THR_BATCH), rows)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     return captured, thr_t, want
@@ -1444,21 +1358,24 @@ def throughput_shape_checks(thr_t: int, launches: dict):
 
     g = torch.Generator(device="cuda")
     g.manual_seed(8)
-    m = THR_BATCH * thr_t
-    out = [k1_case(g, m, 3 * WIDTH), k3_case(g, m),
-           k2_case(g, THR_BATCH, thr_t)[0]]
-    for r in out:
-        r["launches"] = launches[r["name"]]
-        r["shape"] = (f"({THR_BATCH}, {HEADS}, {thr_t}, 64)"
-                      if r["name"] == "mha_oneshot_2d" else f"M={m}")
-        print(f"  {r['name']} {r['shape']}: {_times(r)}, {r['launches']} "
-              "launches in the throughput build")
-    fc = k1_case(g, BATCH * CROPS * T, MLP)
-    fc.update(shape=f"M={BATCH * CROPS * T}, N={MLP}", launches=None)
-    print(f"  ln_matmul {fc['shape']} (the unfused route's fc): "
-          f"{_times(fc)}")
+    out = vit_shape_rows(g, THR_BATCH, thr_t, launches)
+    m = BATCH * CROPS * T
+    fc = k1_case(g, m, MLP, f"M={m}, N={MLP}")  # the unfused route's fc
+    fc["launches"] = None
     torch.cuda.empty_cache()
     return out + [fc]
+
+
+def vit_shape_rows(g, nb: int, t: int, launches: dict) -> list:
+    """K1, K3 and K2 at a forward of ``nb`` crops of ``t`` tokens (M =
+    nb * t rows, attention on (nb, 16, t, 64)) against their plain
+    versions; each row gets its shape and ``launches[name]``."""
+    m = nb * t
+    rows = [k1_case(g, m, 3 * WIDTH, f"M={m}"), k3_case(g, m, f"M={m}"),
+            k2_case(g, nb, t, f"({nb}, {HEADS}, {t}, 64)")[0]]
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    return rows
 
 
 class _AllocatingLib:
@@ -1530,29 +1447,14 @@ def k4_real_check(captured, k4_row):
           f"[0, {CAPACITY}) of the real step")
     if not same:
         raise AssertionError("K4 and K5 disagree on the real step")
-    del got, k5
-    real = sb.slots[sb.slots != CAPACITY]
-    n_rows, n_unique = int(real.numel()), int(torch.unique(real).numel())
-    esz = sb.feats.element_size()
-    b_ms, b_by = bound(2 * n_rows * ACCUM_W,
-                       n_rows * (esz * FEAT + 4 + 4 * (ACCUM_W - FEAT) + 4)
-                       + n_unique * ACCUM_W * 8, PEAK_F32)
-    acc, idx = base, sb.slots.long()
-    before = k4.launches
-    step = dict(rows=int(sb.slots.numel()), feats=str(sb.feats.dtype)[6:],
-                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                device_ms=device_ms(lambda: k4(acc, sb.slots, sb.feats, sb.w,
-                                               sb.aux)),
-                library_device_ms=device_ms(
-                    lambda: acc.index_add_(0, idx, update)),
-                runs=run_lengths(sb.slots))
-    k4.launches = before
-    k4_row["real_step"] = step
-    print(f"  K4 on the real step: device {step['device_ms']:.4f} ms "
-          f"(profiler), index_add_ {step['library_device_ms']:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}); runs {step['runs']}")
-    del acc, base, update, idx
-    torch.cuda.empty_cache()
+    del got, k5, base, update
+    row = scatter_row(k4, sb, CAPACITY, err,
+                      shape=f"(the real batch-{BATCH} step)")
+    k4_row["real_step"] = dict(
+        rows=int(sb.slots.numel()), feats=str(sb.feats.dtype)[6:],
+        **{k: row[k] for k in ("max_abs_err", "bound_ms", "bound_by",
+                               "device_ms", "library_device_ms", "runs")})
+    print(f"  K4 on the real step: runs {row['runs']}")
 
 
 def k5_check(captured, k5_row):
@@ -1561,6 +1463,7 @@ def k5_check(captured, k5_row):
     itself with allocations made between its wrapper and its launch."""
     import torch
 
+    from avlmaps_torch.kernels import build
     from avlmaps_torch.ops import segment_scatter as ss
 
     sb = _sorted_step(captured)
@@ -1585,14 +1488,15 @@ def k5_check(captured, k5_row):
     # the kernel reads only its arguments: allocations of the batch's size
     # between the wrapper and the launch, as the loader's producer thread
     # may make, change no bit
-    lib = _AllocatingLib(ss._lib(), "avl_segment_scatter_add", THR_POINTS)
-    load = ss._lib
-    ss._lib = lambda: lib
+    load = build.load
+    lib = _AllocatingLib(load("segment_scatter"), "avl_segment_scatter_add",
+                         THR_POINTS)
+    build.load = lambda n: lib if n == "segment_scatter" else load(n)
     try:
         stood = _uncounted(ss.sorted_segment_scatter_add, base.clone(),
                            sb.slots, update)
     finally:
-        ss._lib = load
+        build.load = load
     same = torch.equal(stood[:CAPACITY], got[:CAPACITY]) and bool(lib.held)
     print(f"  {'pass' if same else 'FAIL'}: K5 with {len(lib.held)} "
           "allocations of the batch's size just before its launch == K5 "
@@ -1600,32 +1504,11 @@ def k5_check(captured, k5_row):
     if not same:
         raise AssertionError("K5 changed with allocations made between its "
                              "wrapper and its launch")
-    del got, stood
-    real = sb.slots[sb.slots != CAPACITY]
-    n_rows, n_unique = int(real.numel()), int(torch.unique(real).numel())
-    print(f"  real batch: {THR_POINTS} rows, {n_rows} bound for {n_unique} "
-          "voxels, the rest in the trash run")
-    acc = base
-    b_ms, b_by = bound(n_rows * ACCUM_W,
-                       n_rows * (4 * ACCUM_W + 4) + n_unique * ACCUM_W * 8,
-                       PEAK_F32)
-    before = ss.sorted_segment_scatter_add.launches
-    k5 = lambda: ss.sorted_segment_scatter_add(acc, sb.slots,  # noqa: E731
-                                               update)
-    p5 = lambda: ss.sorted_segment_scatter_add_ref(acc, sb.slots,  # noqa: E731
-                                                   update)
-    lib5 = lambda: acc.index_add_(0, sb.slots.long(), update)  # noqa: E731
-    k5_row.update(max_abs_err=err, ms=time_ms(k5), device_ms=device_ms(k5),
-                  plain_ms=time_ms(p5), bound_ms=b_ms, bound_by=b_by,
-                  library_ms=time_ms(lib5),
-                  library_device_ms=device_ms(lib5),
-                  runs=run_lengths(sb.slots))
-    ss.sorted_segment_scatter_add.launches = before
-    print(f"  sorted_segment_scatter_add: {_times(k5_row)}; path "
-          f"{k5_row['path']:.4f} ms a launch in the build's profile; runs "
-          f"{k5_row['runs']}")
-    del acc, base, update
-    torch.cuda.empty_cache()
+    del got, stood, base, update
+    k5_row.update(scatter_row(ss.sorted_segment_scatter_add, sb, CAPACITY,
+                              err))
+    print(f"  K5: path {k5_row['path']:.4f} ms a launch in the build's "
+          f"profile; runs {k5_row['runs']}")
 
 
 def frame_transport_run(net, tmp: Path, k4_row):
@@ -1758,7 +1641,7 @@ def clip_check():
     the port's CPU path; returns the card's encoder."""
     import torch
 
-    from avlmaps_torch.models.clip import MULTIPLE_TEMPLATES, ClipEncoder
+    from avlmaps_torch.models.clip import ClipEncoder
 
     t0 = time.perf_counter()
     enc = ClipEncoder("ViT-B/32", seed=0, device="cuda")
@@ -1782,61 +1665,12 @@ def clip_check():
     # both sides compute in f32; only the summation order differs
     if worst < 0.9999:
         raise AssertionError("CLIP text features disagree with the CPU path")
-    tokens = enc.device_tokens([t.format("chair")
-                                for t in MULTIPLE_TEMPLATES])
-    print(f"  template-ensemble encode of one word (64 prompts, ids cut to "
-          f"{tokens.shape[1]} of {cfg.context_length} tokens): "
-          f"{time_ms(lambda: enc.encode_templates(tokens)):.3f} ms")
     return enc
 
 
-def _device_ms(e):
-    t = getattr(e, "device_time_total", None)
-    return (e.cuda_time_total if t is None else t) / 1e3
-
-
-def profile_queries(query, args, n: int):
-    """Prints the device ms per query: in total (every kernel and copy)
-    and by stage (the ``query.*`` ranges the port marks with
-    ``record_function``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for w in WORDS[:n]:
-            query(w, *args)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    total = sum(e.self_device_time_total for e in events
-                if e.device_type == gpu and not e.key.startswith("query."))
-    total = total / 1e3 / n
-    stages = {e.key: _device_ms(e) / n for e in events
-              if e.device_type == cpu and e.key in STAGES}
-    # K7 is launched through ctypes, not by a torch op, so the profiler
-    # does not attribute it to its range: count it by kernel name
-    k7 = sum(e.self_device_time_total for e in events
-             if e.device_type == gpu and "score_kernel" in e.key)
-    stages["query.score_argmax"] = (stages.get("query.score_argmax", 0.0)
-                                    + k7 / 1e3 / n)
-    print(f"  profiled {n} queries: device busy {total:.3f} ms per query; "
-          "by stage:")
-    for name in STAGES:
-        print(f"    {name[6:]:<12} {stages.get(name, float('nan')):8.3f} ms")
-    if total <= 0 or len(stages) != len(STAGES):
-        raise AssertionError("the profiler saw no device time per stage")
-    top = sorted((e for e in events if e.device_type == gpu
-                  and not e.key.startswith("query.")),
-                 key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms/query "
-              f"{e.count // n:4d}x  {e.key[:80]}")
-
-
 def serving_run(enc):
-    """The serving query at production scale: rate, latency, parity with
-    the host heat, no host sync before the fetch, K7 once per query."""
+    """The serving query at production scale: parity with the host heat,
+    no host sync before the fetch, K7 once per query."""
     import torch
 
     from avlmaps_torch.ops import delivery as dlv
@@ -1857,26 +1691,8 @@ def serving_run(enc):
                                        with_topk=True, device="cuda")
     args = (feats, pos, other)
     keys = ("goal_pos", "topk_vals", "topk_pos")
-
-    def epoch() -> float:
-        t0 = time.perf_counter()
-        pending = [dlv.copy_to_host_async(*(o[k] for k in keys))
-                   for o in (query(w, *args) for w in WORDS)]
-        for _, event in pending:
-            event.synchronize()
-        return len(WORDS) / (time.perf_counter() - t0)
-
-    epoch()  # warm-up
-    rates = sorted(epoch() for _ in range(3))
-    lat = []
-    for w in WORDS[:4]:
-        t0 = time.perf_counter()
+    for w in WORDS:  # warm: each word once through the whole query
         dlv.fetch_np(query(w, *args)["goal_pos"])
-        lat.append((time.perf_counter() - t0) * 1e3)
-    print(f"  serving: {rates[1]:.2f} queries/s median over 3 epochs of "
-          f"{len(WORDS)} (min {rates[0]:.2f}, max {rates[-1]:.2f}); "
-          f"synchronous latency {sorted(lat)[len(lat) // 2]:.2f} ms median "
-          f"of {len(lat)} (min {min(lat):.2f})")
 
     # parity with the host heat, on a query that also returns the u8 head
     before = sim.score_argmax.launches
@@ -1927,7 +1743,6 @@ def serving_run(enc):
             torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 was switched on during the query")
 
-    profile_queries(query, args, 4)
     del feats, pos, out
     torch.cuda.empty_cache()
 
@@ -2248,9 +2063,7 @@ def sound_area_run(enc, scene: Path, rows, clip_row):
     # the two maps, then AVLMap.load_map on the scene
     area = AreaMap(str(scene), clip_encoder=venc, device="cuda")
     clip_row["fn"].launches = 0
-    t0 = time.perf_counter()
     area.create_map(scene)
-    t_area = time.perf_counter() - t0
     clip_row["launches"] = clip_row["fn"].launches
     n_frames = len(area.rgb_paths)
     want = -(-n_frames // CLIP_BATCH)
@@ -2264,10 +2077,8 @@ def sound_area_run(enc, scene: Path, rows, clip_row):
     db = sound.create_sound_map(str(scene))
     t_sound = time.perf_counter() - t0
     poses = sum(len(e["locations"]) for e in db.values())
-    print(f"  area map: {n_frames} frames in {t_area:.2f} s, "
-          f"{n_frames / t_area:.1f} frames/s; sound map: {len(db)} events "
-          f"found of {bursts} bursts in {SOUND_SEQS} sequences, "
-          f"{poses} poses, in {t_sound:.2f} s")
+    print(f"  sound map: {len(db)} events found of {bursts} bursts in "
+          f"{SOUND_SEQS} sequences, {poses} poses, in {t_sound:.2f} s")
     checks["sound map: one event a burst"] = len(db) == bursts
 
     for r in rows:
@@ -2395,21 +2206,17 @@ def superpoint_check(frames, checks: dict):
     s_err = float(np.abs(card["scores"][0][ic] - cpu["scores"][0][ip]).max())
     d_err = float(np.abs(card["descriptors"][0][ic]
                          - cpu["descriptors"][0][ip]).max())
-    ms = time_ms(lambda: sp.extract_device(grays[:1]), iters=5)
-    dev_ms, launches, _ = profile_call(lambda: sp.extract_device(grays[:1]))
     print(f"  SuperPoint {cfg.channels}, det/desc {cfg.det_ch}, D "
           f"{cfg.desc_dim}, {grays.shape[1]}x{grays.shape[2]}: "
           f"{len(pos['card'])} valid keypoints "
           f"of {cfg.max_keypoints}; card vs CPU: {len(shared)} shared "
           f"(share {share:.4f}), at shared keypoints max |score d| "
-          f"{s_err:.2e}, max |descriptor d| {d_err:.2e}; {ms:.2f} ms an "
-          f"image (CUDA events, upload to keypoints), {dev_ms:.3f} ms of "
-          f"device work in {launches} kernel launches (profiler)")
+          f"{s_err:.2e}, max |descriptor d| {d_err:.2e}")
     checks["SuperPoint: keypoint sets card vs CPU share >= 0.99"] = \
         share >= 0.99
     checks["SuperPoint: shared scores within 1e-6, descriptors within "
            "1e-4"] = s_err <= 1e-6 and d_err <= 1e-4
-    return sp, sp_cpu, grays, ms
+    return sp, sp_cpu, grays
 
 
 def superglue_check(sp, grays, checks: dict):
@@ -2437,23 +2244,15 @@ def superglue_check(sp, grays, checks: dict):
         a = match_from_assignment(z, v0, v1, th)[0]
         b = match_from_assignment(z_cpu, v0, v1, th)[0]
         agree[th] = (float((a == b).float().mean()), int((b >= 0).sum()))
-    dev0 = {k: torch.from_numpy(v).cuda() for k, v in f0.items()}
-    dev1 = {k: torch.from_numpy(v).cuda() for k, v in f1.items()}
-    ms = time_ms(lambda: sg.match(dev0, dev1, hw), iters=5)
-    dev_ms, launches, copies = profile_call(lambda: sg.match(dev0, dev1, hw))
     print(f"  SuperGlue {cfg.gnn_layers} layer pairs, {cfg.heads} heads, D "
           f"{cfg.desc_dim}, {cfg.sinkhorn_iters} Sinkhorn iterations, "
           f"{z.shape[1] - 1} + {z.shape[2] - 1} keypoints: Z card vs CPU "
           f"max |d| {err:.2e}; decisions agree "
           + ", ".join(f"{s:.4f} at threshold {t} ({n} CPU matches)"
-                      for t, (s, n) in agree.items())
-          + f"; {ms:.2f} ms a match (CUDA events), {dev_ms:.3f} ms of "
-          f"device work in {launches} kernel launches and {copies} copies "
-          "(profiler)")
+                      for t, (s, n) in agree.items()))
     checks["SuperGlue: Z card vs CPU within 1e-3"] = err <= 1e-3
     checks["SuperGlue: decisions agree on >= 0.99 of the rows"] = min(
         s for s, _ in agree.values()) >= 0.99
-    return ms, launches
 
 
 def netvlad_check(frames, checks: dict):
@@ -2594,14 +2393,10 @@ def image_query_check(enc, scene: Path, frames, rows, checks: dict):
     cfg = load_config()
     avl = AVLMap(cfg, clip_encoder=enc, area_clip_encoder=enc,
                  device="cuda")
-    t0 = time.perf_counter()
     avl.load_map(scene)
-    t_load = time.perf_counter() - t0
     vm = avl.vlmap
     q = frames[7]
-    t0 = time.perf_counter()
     heat = avl.index_image(q)
-    t_query = time.perf_counter() - t0
     cam, base_tf = avl.visual_map.localize_image(q)
     # the host formula (avlmaps_tpu/map/avlmap.py:231-240)
     avl.dataloader.from_habitat_tf(base_tf)
@@ -2612,8 +2407,7 @@ def image_query_check(enc, scene: Path, frames, rows, checks: dict):
         (vm.grid_pos.astype(np.float32) - pos)[:, :2], axis=1), 0.0, 1.0)
     moved = float(np.abs(cam[:3, 3] - avl.visual_map._ref_cam_tf(7)[:3,
                                                                      3]).max())
-    print(f"  AVLMap.load_map with the visual map in {t_load:.2f} s; "
-          f"index_image(frame 7) in {t_query * 1e3:.1f} ms (host clock): "
+    print(f"  AVLMap.load_map with the visual map; index_image(frame 7): "
           f"pose cell ({row}, {col}), {moved:.4f} m from frame 7's camera, "
           f"{int((heat > 0).sum())} of {len(heat)} voxels with heat > 0")
     dev = avl.index_image(q, decay_rate=0.01, delivery="device")
@@ -2767,14 +2561,9 @@ def multi_scale_shape_checks(forwards):
     g.manual_seed(9)
     out = []
     for b in sorted(set(forwards) - {BATCH * CROPS}):
-        for r in (k1_case(g, b * T, 3 * WIDTH), k3_case(g, b * T),
-                  k2_case(g, b, T)[0]):
-            r["launches"] = LAYERS * forwards.count(b)
-            r["shape"] = (f"({b}, {HEADS}, {T}, 64)"
-                          if r["name"] == "mha_oneshot_2d" else f"M={b * T}")
-            print(f"  {r['name']} {r['shape']}: {_times(r)}, "
-                  f"{r['launches']} launches in the multi-scale eval")
-            out.append(r)
+        n = LAYERS * forwards.count(b)
+        out += vit_shape_rows(g, b, T, dict.fromkeys(
+            ("ln_matmul", "ln_mlp_residual", "mha_oneshot_2d"), n))
     torch.cuda.empty_cache()
     return out
 
@@ -2867,7 +2656,7 @@ def _image_query_phase(enc, scene: Path, tmp: Path, vit_rows, score_rows,
         checks["rgb_to_gray_u8 == cv2.cvtColor on a scene frame"] = \
             np.array_equal(rgb_to_gray_u8(frames[0]),
                            cv2.cvtColor(frames[0], cv2.COLOR_RGB2GRAY))
-    sp, sp_cpu, grays, _ = superpoint_check(frames, checks)
+    sp, sp_cpu, grays = superpoint_check(frames, checks)
     superglue_check(sp, grays, checks)
     nv, _ = netvlad_check(frames, checks)
     retrieval_check(tmp, (("NetVLAD", nv), ("CLIP ViT-B/32", enc)), checks)
@@ -2885,7 +2674,6 @@ def _image_query_phase(enc, scene: Path, tmp: Path, vit_rows, score_rows,
 MF_FRAMES = 32
 MF_FLOOR_GAP = 3.0
 MF_BATCH = 8
-MF_M = MF_BATCH * CROPS * T  # 14,416 token rows a forward
 MF_PROBE_STRIDE = 50  # probe_bounds' default: every 5th frame, 50th point
 MF_FEAT_TOL = 1e-5  # |d| <= tol + tol * |CPU| for the stand-in features
 
@@ -3111,14 +2899,7 @@ def multi_floor_run(net, tmp: Path, rows, k5_row, vit_rows):
     # K1-K3 at the build's shapes against their plain versions
     g = torch.Generator(device="cuda")
     g.manual_seed(9)
-    shape_rows = [k1_case(g, MF_M, 3 * WIDTH), k3_case(g, MF_M),
-                  k2_case(g, MF_BATCH * CROPS, T)[0]]
-    for r in shape_rows:
-        r["launches"] = launches[r["name"]]
-        r["shape"] = (f"({MF_BATCH * CROPS}, {HEADS}, {T}, 64)"
-                      if r["name"] == "mha_oneshot_2d" else f"M={MF_M}")
-        print(f"  {r['name']} {r['shape']}: {_times(r)}, {r['launches']} "
-              "launches in the multi-floor build")
+    shape_rows = vit_shape_rows(g, MF_BATCH * CROPS, T, launches)
     torch.cuda.empty_cache()
     print(f"  slice 9 build phase: {time.perf_counter() - t_phase:.1f} s "
           "wall")
@@ -3333,46 +3114,16 @@ def shard_scatter_check(label: str, shards, row, *, gs: int, vh: int,
         del sb, update, acc, base
     j = max(range(len(shards)), key=owned.__getitem__)
     sb = _sorted_step(shards[j], gs, vh, capacity, n_rows)
-    update = torch.cat([sb.w[:, None] * sb.feats.float(), sb.aux], dim=1)
-    acc = torch.zeros(capacity + 1, ACCUM_W, device="cuda")
-    idx = sb.slots.long()
-    real = sb.slots[sb.slots != capacity]
-    n_real, n_unique = int(real.numel()), int(torch.unique(real).numel())
-    if is_k4:
-        esz = sb.feats.element_size()
-        b_ms, b_by = bound(2 * n_real * ACCUM_W,
-                           n_real * (esz * FEAT + 4 + 4 * (ACCUM_W - FEAT)
-                                     + 4) + n_unique * ACCUM_W * 8, PEAK_F32)
-        fn = lambda: k4(acc, sb.slots, sb.feats, sb.w, sb.aux)  # noqa: E731
-        plain = lambda: ss.sorted_segment_scatter_add_split_ref(  # noqa: E731
-            acc, sb.slots, sb.feats, sb.w, sb.aux)
-    else:
-        b_ms, b_by = bound(n_real * ACCUM_W,
-                           n_real * (4 * ACCUM_W + 4)
-                           + n_unique * ACCUM_W * 8, PEAK_F32)
-        fn = lambda: k5(acc, sb.slots, update)  # noqa: E731
-        plain = lambda: ss.sorted_segment_scatter_add_ref(  # noqa: E731
-            acc, sb.slots, update)
-    lib = lambda: acc.index_add_(0, idx, update)  # noqa: E731
-    before = row["fn"].launches
-    out = {**{k: row[k] for k in ("name", "route", "source", "replaces")},
-           "shape": (f"{label}: {sb.slots.numel()} rows a step, "
-                     f"S={capacity + 1}" if n_rows is None else
-                     f"{label}: {sb.slots.numel()} rows a shard, "
-                     f"S={capacity + 1}, shard {j} of {len(shards)}"),
-           "launches": launches, "max_abs_err": max(errs),
-           "ms": time_ms(fn), "device_ms": dev_ms[j],
-           "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
-           "shard_device_ms": dev_ms,
-           "runs": run_lengths(sb.slots, capacity)}
-    row["fn"].launches = before
-    print(f"  {label}: {name} on shard {j} ({n_real} owned rows, "
-          f"{n_unique} voxels): {_times(out)}; each shard's device ms "
-          f"{[round(t, 4) for t in dev_ms]}; runs {out['runs']}; "
-          f"{card_line()}")
-    del sb, update, acc, idx
-    torch.cuda.empty_cache()
+    n = sb.slots.numel()
+    out = scatter_row(
+        row["fn"], sb, capacity, max(errs),
+        shape=(f"{label}: {n} rows a step, S={capacity + 1}"
+               if n_rows is None else f"{label}: {n} rows a shard, "
+               f"S={capacity + 1}, shard {j} of {len(shards)}"),
+        launches=launches, shard_device_ms=dev_ms)
+    print(f"  {label}: {name} on shard {j} ({owned[j]} owned rows); each "
+          f"shard's device ms {[round(t, 4) for t in dev_ms]}; runs "
+          f"{out['runs']}")
     return out
 
 

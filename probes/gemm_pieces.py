@@ -162,6 +162,8 @@ def host_parts(lib, fv, w, x) -> None:
     wrapper, and one tensor map, encoded or from the cache."""
     import torch
 
+    from avlmaps_torch.kernels import build as kb
+
     m = x.shape[0]
     xn, out = torch.empty_like(x), torch.empty(m, 3 * WIDTH,
                                                dtype=x.dtype, device="cuda")
@@ -169,7 +171,7 @@ def host_parts(lib, fv, w, x) -> None:
             w["wq"].data_ptr(), w["bq"].data_ptr(), xn.data_ptr(),
             out.data_ptr(), m, 3 * WIDTH, WIDTH, EPS,
             torch.cuda.current_stream().cuda_stream)
-    c_call = fv._lib().avl_ln_matmul
+    c_call = kb.load("fused_vit").avl_ln_matmul
     c_us = host_us(lambda: c_call(*args))
     wrapper_us = host_us(lambda: fv.ln_matmul(x, w["gam"], w["bet"],
                                               w["wq"], w["bq"], eps=EPS))

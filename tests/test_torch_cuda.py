@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from avlmaps_torch.kernels import build
 from avlmaps_torch.ops import fused_vit as fv
 from avlmaps_torch.ops import segment_scatter as ss
 from avlmaps_torch.ops import similarity as sim
@@ -222,8 +223,10 @@ def test_launch_reads_only_its_arguments(gen, monkeypatch, kernel):
     alone = run()
     name = ("avl_segment_scatter_add_split" if kernel == "split"
             else "avl_segment_scatter_add")
-    lib = _AllocatingLib(ss._lib(), name, b)
-    monkeypatch.setattr(ss, "_lib", lambda: lib)
+    load = build.load
+    lib = _AllocatingLib(load("segment_scatter"), name, b)
+    monkeypatch.setattr(build, "load", lambda n: lib if n == "segment_scatter"
+                        else load(n))
     got = run()
     torch.cuda.synchronize()
     assert lib.held, "the launch did not go through the wrapped library"

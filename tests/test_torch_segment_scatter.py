@@ -113,8 +113,9 @@ from avlmaps_torch.ops import segment_scatter as tss  # noqa: E402
 @pytest.mark.parametrize("pattern", ["collisions", "unique", "one_slot",
                                      "trash_tail"])
 def test_k5_plain_version_matches_jax_kernel(rng, pattern, rle, rows):
-    """K5's plain version against the JAX kernel (both payload kernels,
-    interpret mode) on the four slot patterns.  With capacity + 1 rows the
+    """K5's plain version against the JAX kernel (both of its payload
+    kernels, ``rle``, interpret mode; the port has one) on the four slot
+    patterns.  With capacity + 1 rows the
     JAX kernel discards the trash row's updates, so rows [0, CAP) are
     compared; with an 8-aligned accumulator every row counts; with
     S % 8 == 3 the JAX package takes its XLA scatter."""
@@ -128,7 +129,7 @@ def test_k5_plain_version_matches_jax_kernel(rng, pattern, rle, rows):
                              interpret=True))
     got = tss.sorted_segment_scatter_add(
         torch.from_numpy(accum.copy()), torch.from_numpy(slots),
-        torch.from_numpy(updates), rle=rle)
+        torch.from_numpy(updates))
     n = CAP if rows == CAP + 1 else rows
     np.testing.assert_allclose(got.numpy()[:n], want[:n], rtol=1e-5,
                                atol=1e-5)
@@ -141,8 +142,7 @@ def test_k5_updates_in_place_and_skips_empty_batches(rng):
         accum, torch.zeros(0, dtype=torch.int32), torch.zeros(0, 8)) \
         is accum
     slots = torch.from_numpy(_slots(rng, "collisions", 20))
-    out = tss.sorted_segment_scatter_add(accum, slots, torch.ones(20, 8),
-                                         rle=False)
+    out = tss.sorted_segment_scatter_add(accum, slots, torch.ones(20, 8))
     assert out is accum
     np.testing.assert_array_equal(
         accum[:, 3].numpy(), np.bincount(slots.numpy(), minlength=CAP + 1))

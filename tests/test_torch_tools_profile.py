@@ -215,5 +215,5 @@ def test_ab_fusion_prep_refuses_a_route_that_drops_rows(monkeypatch):
 
     monkeypatch.setattr(voxel_fusion, "sorted_segment_scatter_add",
                         drop_first)
-    with pytest.raises(AssertionError, match="K5 rle"):
+    with pytest.raises(AssertionError, match="route K5"):
         ab.run("cpu", reps=1, rows=4000, gs=100, capacity=20000)

@@ -154,7 +154,9 @@ def test_occupied_from_grid_pos_inverts_slots(rng):
                                   np.arange(20))
 
 
-# (dedup_scatter, scatter_split, scatter_rle): the accumulate's routes
+# (dedup_scatter, scatter_split, scatter_rle): the accumulate's routes;
+# scatter_rle picks one of the JAX package's two K5 kernels, and the
+# port's one K5 is held against both
 ROUTES = [(False, True, True), (True, True, True), (True, False, True),
           (True, False, False)]
 
@@ -184,7 +186,7 @@ def test_fuse_points_routes_match_jax(rng, route, b):
                                  scatter_rle=rle)
             ts = tvf.fuse_points(ts, *map(torch.from_numpy, batch), gs=GS,
                                  vh=VH, dedup_scatter=dedup,
-                                 scatter_split=split, scatter_rle=rle)
+                                 scatter_split=split)
             _assert_same_state(ts, js)
     finally:
         jax_ss.FORCE_INTERPRET = False
