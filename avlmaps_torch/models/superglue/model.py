@@ -17,8 +17,12 @@ log-domain Sinkhorn with a learned dustbin.  As in the JAX package:
   the preceding dense layers when the weights are ported (``port.py``).
 
 Everything runs in f32 under ``full_f32``: the match decision is an
-argmax, and TF32 would flip it.  The Sinkhorn, ``log_optimal_transport``,
-is ``ops/sinkhorn.py``'s ``sinkhorn``: on a card, one hand-written kernel
+argmax, and TF32 would flip it.  Each propagation's attention is
+``ops/superglue_attention.py``'s ``masked_attention`` (on a card, one
+hand-written kernel with online softmax; both images of a layer as one
+batch, the shorter set padded); the projections and the MLP are
+torch matrix products.  The Sinkhorn, ``log_optimal_transport``, is
+``ops/sinkhorn.py``'s ``sinkhorn``: on a card, one hand-written kernel
 a half-update.  The forward runs under two
 ``record_function`` ranges, ``query.image.gnn`` (the keypoint encoder
 through the final scores) and ``query.image.sinkhorn``; the matcher's
@@ -36,6 +40,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from avlmaps_torch.ops.sinkhorn import NEG, sinkhorn as log_optimal_transport
+from avlmaps_torch.ops.superglue_attention import masked_attention
 from avlmaps_torch.utils.device import full_f32, resolve_device, to_device
 
 
@@ -61,6 +66,12 @@ def normalize_keypoints(kpts: torch.Tensor, hw: Tuple[int, int]
     center = torch.tensor([w / 2.0, h / 2.0], dtype=torch.float32,
                           device=kpts.device)
     return (kpts - center) / (0.7 * max(h, w))
+
+
+def _pad_rows(t: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, K, ...) -> (B, k, ...): zeros (False) after the K rows given."""
+    return torch.cat([t, t.new_zeros((t.shape[0], k - t.shape[1])
+                                     + t.shape[2:])], 1)
 
 
 class KeypointEncoder(nn.Module):
@@ -97,18 +108,8 @@ class Propagation(nn.Module):
         self.mlp1 = nn.Linear(2 * d, d)
 
     def forward(self, x, src, src_valid):
-        b, n, d = x.shape
-        h = self.heads
-        hd = d // h
-        # strided heads: (b, n, d) -> (b, n, hd, h), channel c -> head c % h
-        q = self.q(x).reshape(b, n, hd, h)
-        k = self.k(src).reshape(b, src.shape[1], hd, h)
-        v = self.v(src).reshape(b, src.shape[1], hd, h)
-        logits = torch.einsum("bqdh,bkdh->bhqk", q, k) / (hd ** 0.5)
-        logits = torch.where(src_valid[:, None, None, :], logits,
-                             torch.full_like(logits, NEG))
-        prob = torch.softmax(logits, dim=-1)
-        msg = torch.einsum("bhqk,bkdh->bqdh", prob, v).reshape(b, n, d)
+        msg = masked_attention(self.q(x), self.k(src), self.v(src),
+                               src_valid, self.heads)
         y = torch.cat([x, self.merge(msg)], dim=-1)
         return self.mlp1(F.relu(self.mlp0(y)))
 
@@ -129,6 +130,26 @@ class SuperGlueNet(nn.Module):
             self.final_proj = nn.Linear(cfg.desc_dim, cfg.desc_dim)
             self.bin_score = nn.Parameter(torch.tensor(1.0))
 
+    def _propagate(self, d0, valid0, d1, valid1):
+        """The attentional layers, each running both images as one batch
+        (d0 over d1 on the batch axis): both cross deltas read the
+        PRE-update descriptors, so the cross layer's keys are the batch
+        rolled by half; on a card, one attention launch a layer.  A shorter
+        set is padded to the longer with masked rows, whose NEG logits
+        weigh exactly 0 in every row that has a valid key.  (A set with no
+        valid keypoint is averaged over its padded length, not its own;
+        with no valid pair, Z reads no score, so it is the same Z.)"""
+        b, k0, k1 = d0.shape[0], d0.shape[1], d1.shape[1]
+        k = max(k0, k1)
+        d = torch.cat([_pad_rows(d0, k), _pad_rows(d1, k)])
+        valid_self = torch.cat([_pad_rows(valid0, k), _pad_rows(valid1, k)])
+        valid_cross = valid_self.roll(b, 0)
+        for i in range(self.cfg.gnn_layers):
+            self_prop, cross_prop = self.gnn[2 * i], self.gnn[2 * i + 1]
+            d = d + self_prop(d, d, valid_self)
+            d = d + cross_prop(d, d.roll(b, 0), valid_cross)
+        return d[:b, :k0], d[b:, :k1]
+
     def forward(self, kpts0, scores0, desc0, valid0,
                 kpts1, scores1, desc1, valid1,
                 hw0: Tuple[int, int],
@@ -140,15 +161,7 @@ class SuperGlueNet(nn.Module):
             d0 = desc0.float() + self.kenc(kpts0, scores0, hw0)
             d1 = desc1.float() + self.kenc(kpts1, scores1,
                                            hw1 if hw1 is not None else hw0)
-            for pair in range(self.cfg.gnn_layers):
-                self_prop = self.gnn[2 * pair]
-                cross_prop = self.gnn[2 * pair + 1]
-                d0 = d0 + self_prop(d0, d0, valid0)
-                d1 = d1 + self_prop(d1, d1, valid1)
-                # both cross deltas read the PRE-update descriptors
-                d0n = d0 + cross_prop(d0, d1, valid1)
-                d1 = d1 + cross_prop(d1, d0, valid0)
-                d0 = d0n
+            d0, d1 = self._propagate(d0, valid0, d1, valid1)
             m0, m1 = self.final_proj(d0), self.final_proj(d1)
             scores = torch.einsum("bnd,bmd->bnm", m0, m1) \
                 / self.cfg.desc_dim ** 0.5

@@ -41,7 +41,16 @@ portbench/run.py``, which times them in pairs with their spreads.
    within 1e-4 of its plain version (the torch loop) on the card and the
    same match decision; its bytes bound is one read of the coupling a
    half-update.  Its ``launches`` are slice 8's, one for each of
-   SuperGlue's Sinkhorns on the card there, else slice 8 fails.
+   SuperGlue's Sinkhorns on the card there, else slice 8 fails.  Then
+   SuperGlue's attention kernel (``masked_attention``) at the image
+   query's shape, 4096 x 4096 keypoints, 256 channels in 4 strided heads:
+   each mask case (all valid, the last quarter of the keys padded, all
+   padded) within 1e-5 of the output scale of its plain version (the
+   einsums and softmax), timed at (2, 4096, 4096), the launch the image
+   query makes for both images, beside f32 ``scaled_dot_product_attention``
+   on blocked-head copies (the yardstick); its bound is operations.  Its
+   ``launches`` are slice 8's, one for each of SuperGlue's attentions on
+   the card there, else slice 8 fails.
 3. Slice 1, map construction: writes a synthetic 720x1080 RGB-D scene,
    builds it with ``VLMapBuilder`` and the ViT-L/16 LSeg in bf16 (seeded
    random weights) at gs=1000, cs=0.05, vh=30, capacity 1e6, D=512, batch
@@ -349,6 +358,7 @@ REPLACES = {
     "score_argmax": "avlmaps_tpu/ops/similarity.py:157",
     "clip_resample": "avlmaps_tpu/models/clip/model.py:220",
     "sinkhorn": "none",
+    "masked_attention": "none",
 }
 
 
@@ -865,6 +875,72 @@ def sinkhorn_check():
                      nbytes=(2 * iters + 1) * 4 * (k + 1) ** 2,
                      dev_iters=3, plain_iters=3)
     del scores, z, zp
+    torch.cuda.empty_cache()
+    return row
+
+
+ATTENTION_TOL = 1e-5  # tests/test_torch_superglue_attention.py's TOL
+
+
+def attention_check():
+    """SuperGlue's attention kernel at the image query's launch: seeded
+    (2, 4096, 256) queries, keys and values (4 strided heads of 64), both
+    images' propagation in one call with a mask each, as the model makes
+    it: the first pair's keys all valid and the second's last quarter
+    padded, then the first's last quarter padded and the second's all
+    padded.  Raises unless each output is within ``ATTENTION_TOL`` of the
+    output scale (max(1, max |plain|)) of the plain version's.  The row
+    times the kernel (CUDA events; device ms from the profiler) and the
+    plain version on the first masks, and f32
+    ``scaled_dot_product_attention`` on blocked-head copies made
+    beforehand (a yardstick the port never calls); the bound is the
+    launch's 34.4 GFLOP at the f32 peak (0.257 ms a propagation).  Its
+    ``max_abs_err`` is max |out - plain| over both mask cases,
+    ``scaled_err`` that over the output scale."""
+    import torch
+    import torch.nn.functional as F
+
+    from avlmaps_torch.ops import superglue_attention as sa
+
+    k, d, heads = SINKHORN_K, 256, 4
+    g = torch.Generator().manual_seed(23)
+    q, kk, v = (s * torch.randn(2, k, d, generator=g)
+                for s in (2.0, 2.0, 1.0))
+    q, kk, v = q.cuda(), kk.cuda(), v.cuda()
+    keys = torch.arange(k, device="cuda")
+    all_valid, quarter, none = keys >= 0, keys < 3 * k // 4, keys < 0
+    errs, gaps = [], []
+    for name, valid in (("all valid | last quarter padded",
+                         torch.stack([all_valid, quarter])),
+                        ("last quarter padded | all padded",
+                         torch.stack([quarter, none]))):
+        got = sa.masked_attention(q, kk, v, valid, heads)
+        want = sa.masked_attention_ref(q, kk, v, valid, heads)
+        err = float((got - want).abs().max())
+        gap = err / max(1.0, float(want.abs().max()))
+        print(f"  masked_attention {name}: max |out - out_plain| "
+              f"{err:.3e}, over the output scale {gap:.3e} (tolerance "
+              f"{ATTENTION_TOL:g})")
+        if not (bool(torch.isfinite(got).all()) and gap <= ATTENTION_TOL):
+            raise AssertionError(f"masked_attention ({name}) differs from "
+                                 "its plain version")
+        errs.append(err)
+        gaps.append(gap)
+    valid = torch.stack([all_valid, quarter])
+    blocked = [t.view(2, k, d // heads, heads).permute(0, 3, 1, 2)
+               .contiguous() for t in (q, kk, v)]
+    mask = valid[:, None, None, :]
+    kern = lambda: sa.masked_attention(q, kk, v, valid, heads)  # noqa: E731
+    plain = lambda: sa.masked_attention_ref(q, kk, v, valid,  # noqa: E731
+                                            heads)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        *blocked, attn_mask=mask)
+    row = kernel_row(sa.masked_attention, kern, plain, lib, err=max(errs),
+                     flops=2 * heads * k * k * (d // heads) * 2 * 2,
+                     nbytes=4 * 2 * k * d * 4, plain_iters=3,
+                     shape=f"(2, {k}, {k}), 4 heads of 64",
+                     scaled_err=max(gaps))
+    del q, kk, v, blocked
     torch.cuda.empty_cache()
     return row
 
@@ -2599,39 +2675,47 @@ def wav2clip_check(scene: Path, checks: dict):
 
 
 def image_query_run(enc, scene: Path, tmp: Path, vit_rows, score_rows,
-                    sink_row):
+                    sink_row, attn_row):
     """Slice 8 on the slice-1 scene: SuperPoint, SuperGlue and NetVLAD at
     full width against the CPU, retrieval with NetVLAD and CLIP, the
     textured refinement, ``AVLMap.index_image`` and its fused goal, the
     multi-scale LSeg eval and Wav2CLIP.  ``vit_rows`` are K1-K3's kernel
     rows, ``score_rows`` K7's and K8's; each gets its slice-8 count.
-    ``sink_row`` gets the Sinkhorn kernel's launches over the phase, which
-    must be one for each of SuperGlue's Sinkhorns on a CUDA tensor (and
-    there must be some).  Returns K1-K3's rows at the multi-scale eval's
-    other shapes."""
+    ``sink_row`` and ``attn_row`` get the Sinkhorn's and the attention's
+    kernel launches over the phase, which must be one for each of
+    SuperGlue's Sinkhorns (attentions) on a CUDA tensor (and there must be
+    some).  Returns K1-K3's rows at the multi-scale eval's other shapes."""
     from avlmaps_torch.models.superglue import model as sg_model
 
     t_phase = time.perf_counter()
     checks = {}
-    sinkhorn = sg_model.log_optimal_transport
-    on_card = [0]
+    wrapped = {"log_optimal_transport": sink_row,
+               "masked_attention": attn_row}
+    real = {name: getattr(sg_model, name) for name in wrapped}
+    on_card = dict.fromkeys(wrapped, 0)
 
-    def counted(scores, *args):
-        on_card[0] += scores.is_cuda
-        return sinkhorn(scores, *args)
+    def counter(name):
+        def counted(x, *args):
+            on_card[name] += x.is_cuda
+            return real[name](x, *args)
+        return counted
 
-    sink_row["fn"].launches = 0
-    sg_model.log_optimal_transport = counted
+    for name, row in wrapped.items():
+        row["fn"].launches = 0
+        setattr(sg_model, name, counter(name))
     try:
         shape_rows = _image_query_phase(enc, scene, tmp, vit_rows,
                                         score_rows, checks)
     finally:
-        sg_model.log_optimal_transport = sinkhorn
-    sink_row["launches"] = sink_row["fn"].launches
-    print(f"  sinkhorn: {sink_row['launches']} kernel launches for "
-          f"{on_card[0]} SuperGlue Sinkhorns on the card")
-    checks["SuperGlue's Sinkhorn on the card: the kernel once a match"] = \
-        on_card[0] >= 1 and sink_row["launches"] == on_card[0]
+        for name, fn in real.items():
+            setattr(sg_model, name, fn)
+    for name, row in wrapped.items():
+        row["launches"] = row["fn"].launches
+        print(f"  {row['name']}: {row['launches']} kernel launches for "
+              f"{on_card[name]} SuperGlue calls of {name} on the card")
+        checks[f"SuperGlue's {name} on the card: the kernel once a "
+               "call"] = on_card[name] >= 1 and \
+            row["launches"] == on_card[name]
     print(f"  slice 8 phase: {time.perf_counter() - t_phase:.1f} s wall")
     for name, ok in checks.items():
         print(f"  {'pass' if ok else 'FAIL'}: {name}")
@@ -4562,6 +4646,9 @@ def main() -> int:
     print(f"SuperGlue Sinkhorn kernel check (1, {SINKHORN_K}, {SINKHORN_K}), "
           f"{SINKHORN_ITERS} iterations:")
     sink_row = sinkhorn_check()
+    print(f"SuperGlue attention kernel check (1, {SINKHORN_K}, {SINKHORN_K}), "
+          "256 channels, 4 heads:")
+    attn_row = attention_check()
     from avlmaps_torch.ops import segment_scatter as ss
 
     k5_row = dict(name="sorted_segment_scatter_add",
@@ -4628,7 +4715,7 @@ def main() -> int:
               "AVLMap.index_image, the multi-scale LSeg eval and Wav2CLIP "
               "on the slice-1 scene:")
         thr_rows += image_query_run(enc, scene, Path(tmp), rows[:3],
-                                    rows[4:], sink_row)
+                                    rows[4:], sink_row, attn_row)
         print("slice 9: VLMapMultiFloor.index_map, HabitatLanguageRobot on "
               "the slice-1 map (card and CPU), the port's CLIs:")
         robot_run(enc, scene, mf_scene, Path(tmp), rows[4:], s9_checks)
@@ -4693,10 +4780,11 @@ def main() -> int:
              "slice12_launches": "slice12_launches",
              "library_device_ms": "library_dev", "runs": "runs",
              "real_step": "real_step", "staged_ms": "staged_ms",
-             "upload_ms": "upload_ms"}
+             "upload_ms": "upload_ms", "scaled_err": "scaled_err"}
     table = [{**{k: r[k] for k in keys},
               **{v: r[k] for k, v in extra.items() if k in r}}
-             for r in rows + [k5_row] + vit_rows + [clip_row, sink_row]]
+             for r in rows + [k5_row] + vit_rows + [clip_row, sink_row,
+                                                     attn_row]]
     print(json.dumps({"more_shapes": [
         {k: r[k] for k in ("shape", "device_ms", "library_device_ms",
                            "slice12_launches") + keys}

@@ -95,6 +95,8 @@ def test_parser_reads_pointers_ints_and_floats():
     assert mha[-2] is _F
     assert sigs("clip_resample")["avl_clip_resample"][12:18] == [_F] * 6
     assert sigs("sinkhorn")["avl_sinkhorn"] == [_P] * 10 + [_I] * 6 + [_P]
+    assert sigs("superglue_attention")["avl_superglue_attention"] == [
+        _P] * 5 + [_I] * 4 + [_F, _P]
 
 
 def _plant(tmp_path, monkeypatch, decl: str) -> None:

@@ -128,6 +128,32 @@ def test_assignment_matches_jax_on_bridged_weights(ported):
     assert (t.numpy() >= 0).sum() >= 3
 
 
+# (K0, valid in set 0, K1, valid in set 1): the image query's shape, two
+# sets of one size with one padded, and sets with no valid keypoint, whose
+# padded rows the batched layers average over
+ONE_BATCH_CASES = {"one_size_padded": (28, 28, 28, 21),
+                   "one_size_set1_empty": (28, 28, 28, 0),
+                   "shorter_set_empty": (24, 24, 20, 0),
+                   "longer_set_empty": (24, 0, 20, 17)}
+
+
+@pytest.mark.parametrize("case", sorted(ONE_BATCH_CASES))
+def test_batched_layers_match_jax(ported, case):
+    """Every layer runs both images as one batch, the shorter set padded
+    to the longer; the full Z is the JAX package's image-by-image net's."""
+    sd, variables = ported
+    k0, n0, k1, n1 = ONE_BATCH_CASES[case]
+    rng = np.random.default_rng(5)
+    f0 = _feats(rng, k0, n_valid=n0)
+    f1 = _feats(rng, k1, hw=HW1, n_valid=n1)
+    want = _jax_z(variables, f0, f1, HW1)
+    m = SuperGlueMatcher(TINY, params=port_superglue_state_dict(sd),
+                         device="cpu")
+    got = m.assignment(f0, f1, HW, HW1).numpy()
+    assert got.shape == (1, k0 + 1, k1 + 1) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
 def test_padding_invariance(ported):
     """Padding either set leaves the valid block and both dustbins."""
     sd, _ = ported
@@ -205,6 +231,21 @@ def test_matcher_matches_jax_matcher():
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-4)
     assert (got_m.numpy()[0, 10:] == -1).all()
+
+
+def test_matcher_matches_jax_matcher_on_sets_of_one_size():
+    """The wrappers on bridged seeded weights at K0 == K1, set 0 padded,
+    as the image query calls them."""
+    jm = JaxSGMatcher(JaxSGConfig.tiny(), seed=0)
+    rng = np.random.default_rng(4)
+    f0, f1 = _feats(rng, 20, n_valid=13), _feats(rng, 20)
+    want_m, want_s = jm.match(f0, f1, HW)
+    tm = SuperGlueMatcher(TINY, params=params_from_flax(jm.params),
+                          device="cpu")
+    got_m, got_s = tm.match(f0, f1, HW)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-4)
+    assert (got_m.numpy()[0, 13:] == -1).all()
 
 
 def test_init_params_seeded_at_full_width():
